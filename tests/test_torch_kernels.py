@@ -1,0 +1,177 @@
+"""The port's kernel front doors against the JAX package's Pallas kernels.
+
+On the CPU the front doors (``repro_torch.kernels.ops``) take the plain
+versions because the tensors lie on the CPU; the JAX side runs its Pallas
+kernels in interpret mode.  Tolerances as in ``test_torch_ref.py``:
+bit-exact histograms, counters, folds and quantiles for integer weights
+under ``linear`` / ``cubic``; ``summ`` within 2 n u sum|w x| per row.
+
+The hand-written CUDA kernels themselves run only on a card: the test
+marked ``gpu`` holds them against the plain versions there and skips
+elsewhere (``python3 chip_smoke.py`` checks them at the serving shapes).
+The JAX package comes in through a fixture, so this file also collects on
+a machine with a card and no JAX (``python -m pytest -m gpu`` there).
+"""
+
+import subprocess
+import sys
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.engine.tables import device_value_table
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ref import BucketSpec as TSpec
+
+U = 2.0**-24
+
+
+@pytest.fixture
+def jx():
+    """The JAX side: ``jnp``, the Pallas front doors and their spec."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops
+    from repro.kernels.ref import BucketSpec
+
+    return SimpleNamespace(jnp=jnp, ops=ops, Spec=BucketSpec)
+
+
+def _lanes(rng, n, k):
+    x = (rng.pareto(1.0, n) + 1.0).astype(np.float32)
+    x *= np.where(rng.random(n) < 0.3, -1.0, 1.0).astype(np.float32)
+    x[:6] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e12]
+    s = np.sort(rng.integers(-1, k + 1, n)).astype(np.int32)
+    lev = rng.integers(0, 7, n).astype(np.int32)
+    return x, s, lev
+
+
+@pytest.mark.parametrize("mapping", ["linear", "cubic"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fused_ingest_front_door_matches_pallas_interpret(mapping, weighted, rng, jx):
+    jnp = jx.jnp
+    k, n = 16, 2048
+    js = jx.Spec(num_buckets=512, offset=-256, mapping=mapping)
+    ts = TSpec(num_buckets=512, offset=-256, mapping=mapping)
+    x, s, lev = _lanes(rng, n, k)
+    w = rng.integers(0, 4, n).astype(np.float32) if weighted else None
+    jp, jn, jst = jx.ops.fused_ingest(
+        jnp.asarray(x), jnp.asarray(s), None if w is None else jnp.asarray(w),
+        jnp.asarray(lev), num_segments=k, spec=js, force="interpret",
+    )
+    tp, tn, tst = tops.fused_ingest(
+        torch.from_numpy(x), torch.from_numpy(s), None if w is None else torch.from_numpy(w),
+        torch.from_numpy(lev), num_segments=k, spec=ts,
+    )
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    for f in ("zero", "overflow", "underflow", "vmin", "vmax"):
+        np.testing.assert_array_equal(getattr(tst, f).numpy(), np.asarray(getattr(jst, f)))
+    valid = np.isfinite(x) & (s >= 0) & (s < k)
+    wv = np.ones(n, np.float32) if w is None else w
+    absum = np.bincount(s[valid], np.abs(wv * x)[valid].astype(np.float64), minlength=k)
+    nrow = np.bincount(s[valid], minlength=k)
+    assert np.all(np.abs(tst.summ.numpy() - np.asarray(jst.summ)) <= 2 * nrow * U * absum)
+
+
+def test_fold_pairs_front_door_matches_pallas_interpret(rng, jx):
+    js, ts = jx.Spec(num_buckets=512, offset=-256), TSpec(num_buckets=512, offset=-256)
+    c = rng.integers(0, 1000, (16, 512)).astype(np.float32)
+    want = np.asarray(jx.ops.fold_pairs(jx.jnp.asarray(c), spec=js, force="interpret"))
+    np.testing.assert_array_equal(tops.fold_pairs(torch.from_numpy(c), spec=ts).numpy(), want)
+    # the fused row mask: unselected rows keep their counts; out= folds in place
+    rows = torch.from_numpy(rng.random(16) < 0.5)
+    t = torch.from_numpy(c.copy())
+    tops.fold_pairs(t, spec=ts, rows=rows, out=t)
+    np.testing.assert_array_equal(t.numpy(), np.where(rows.numpy()[:, None], want, c))
+
+
+@pytest.mark.parametrize("mapping", ["log", "linear", "cubic"])
+def test_bank_quantiles_front_door_matches_pallas_interpret(mapping, rng, jx):
+    jnp = jx.jnp
+    js = jx.Spec(num_buckets=512, offset=-256, mapping=mapping)
+    ts = TSpec(num_buckets=512, offset=-256, mapping=mapping)
+    k = 16
+    pos = rng.poisson(2.0, (k, 512)).astype(np.float32)
+    neg = rng.poisson(0.3, (k, 512)).astype(np.float32)
+    zero = rng.poisson(3.0, k).astype(np.float32)
+    pos[0] = neg[0] = zero[0] = 0
+    vmin = np.full(k, -5e4, np.float32)
+    vmax = np.full(k, 5e4, np.float32)
+    level = rng.integers(0, 7, k).astype(np.int32)
+    qs = [0.0, 0.05, 0.5, 0.95, 0.99, 1.0]
+    args = (pos, neg, zero, vmin, vmax, level)
+    want = np.asarray(
+        jx.ops.bank_quantiles(*map(jnp.asarray, args), jnp.asarray(qs, jnp.float32),
+                            spec=js, force="interpret")
+    )
+    got = tops.bank_quantiles(*map(torch.from_numpy, args), qs, spec=ts).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dispatch_stats_count_launches_only():
+    tops.reset_dispatch_stats()
+    ts = TSpec(num_buckets=512, offset=-256)
+    tops.fold_pairs(torch.zeros(2, 512), spec=ts)  # CPU: the plain version
+    stats = tops.dispatch_stats()
+    assert stats == {"launches": {"ddsketch_ingest": 0, "fold_pairs": 0, "bank_quantiles": 0}}
+
+
+def test_kernel_modules_import_without_nvcc_or_triton():
+    code = (
+        "import sys\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ddsketch_ingest\n"
+        "import repro_torch.kernels.fold_pairs, repro_torch.kernels.bank_quantiles\n"
+        "from repro_torch.kernels import _build\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert not _build._libs, 'a kernel was built at import'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises: it never falls back."""
+    from repro_torch.kernels.bank_quantiles import bank_quantiles_cuda
+    from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda
+    from repro_torch.kernels.fold_pairs import fold_pairs_cuda
+
+    ts = TSpec(num_buckets=512, offset=-256)
+    x = torch.zeros(8)
+    with pytest.raises(ValueError):
+        ddsketch_ingest_cuda(x, x.int(), None, None, num_segments=1, spec=ts)
+    with pytest.raises(ValueError):
+        fold_pairs_cuda(torch.zeros(2, 512), spec=ts)
+    c = torch.zeros(2, 512)
+    with pytest.raises(ValueError):
+        bank_quantiles_cuda(c, c, torch.zeros(2), x[:2], x[:2], torch.zeros(2, dtype=torch.int32),
+                            x[:1], torch.zeros(7, 512))
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    dev = torch.device("cuda")
+    ts = TSpec()
+    k, n = 64, 1 << 16
+    x, s, lev = _lanes(rng, n, k)
+    xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
+    tops.reset_dispatch_stats()
+    p, q, st = tops.fused_ingest(xt, st_, None, lt, num_segments=k, spec=ts)
+    hp, sp = tref.fused_ingest_ref(xt, st_, None, lt, num_segments=k, spec=ts)
+    assert torch.equal(torch.cat([p, q]), hp)
+    for f in ("zero", "overflow", "underflow", "vmin", "vmax"):
+        assert bool((getattr(st, f) == getattr(sp, f)).all())
+    folded = tops.fold_pairs(hp, spec=ts)
+    assert torch.equal(folded, tref.fold_pairs_ref(hp, spec=ts))
+    lv = torch.from_numpy(rng.integers(0, 7, k).astype(np.int32)).to(dev)
+    qs = torch.tensor([0.0, 0.5, 0.99, 1.0], device=dev)
+    table = device_value_table(ts, dev)
+    got = tops.bank_quantiles(p, q, sp.zero, sp.vmin, sp.vmax, lv, qs, spec=ts, table=table)
+    want = tref.bank_quantiles_ref(p, q, sp.zero, sp.vmin, sp.vmax, lv, qs, table)
+    assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+    assert all(v > 0 for v in tops.dispatch_stats()["launches"].values())
