@@ -1,30 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from a checkout of the repository on a machine with a CUDA card.  The
-script builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, started together), then:
+script builds the port's seven CUDA kernels from ``src/repro_torch/csrc``
+(one ``nvcc`` per source, started together), then:
 
-1. holds each kernel against its plain PyTorch version on the card, at the
-   serving shapes (K = 4096 rows, m = 2048 buckets, ticks of 2^20 lanes,
-   Q = 8), over the three mappings, levels 0-6 and weights none / integer
-   / fractional, with NaN, +-inf, +-0, out-of-range ids and padding lanes;
-2. drives the main path once at full width: a ``KeyedWindow`` of capacity
-   4095 on the card behind an ``IngestGateway`` and a ``QuantileHTTPServer``
-   on an ephemeral localhost port, a few ``POST /ingest`` batches, direct
-   ``record_batches`` ticks of 2^20 lanes, then ``GET /live``, ``/rollup``,
-   an ``If-None-Match`` re-poll that must get 304, ``/stats`` and, after an
-   aggregator flush, ``/quantiles``.  The kernel launch counters are zeroed
-   just before and read just after, and every kernel must have launched;
-3. checks the answers: the relative-error guarantee per row against
-   numpy's exact quantiles, and, under the ``linear`` mapping, ``/live``
-   and ``/rollup`` bodies equal to the same session run on the CPU;
+2. holds each kernel against its plain PyTorch version on the card at its
+   path's shapes: the serving shapes (K = 4096 rows, m = 2048 buckets,
+   ticks of 2^20 lanes, Q = 8) over the three mappings, levels 0-6 and
+   weights none / integer / fractional, with NaN, +-inf, +-0, out-of-range
+   ids and padding lanes; the range merge at D + 1 = 13 slices of 2K = 8192
+   rows with deltas 0-6 and two dead slices; the scatter on the compacted
+   triples of 2^20 lanes, and on duplicate keys;
 4. times each kernel, its plain version and the one PyTorch call that
-   computes the same function where there is one, with CUDA events (before
-   the main path, whose last ingest tick runs under ``torch.profiler``),
-   and states each kernel's bound from the bytes it must move.
+   computes the same function where there is one, with CUDA events, and
+   states each kernel's bound from the bytes it must move (before the
+   paths below, whose serving tick runs under ``torch.profiler``);
+3. drives each path of the port once at full width through the entry
+   points a user calls, with the kernel launch counters zeroed just before
+   and read just after; every kernel of the path must have launched:
+
+   a. serving: a ``KeyedWindow`` of capacity 4095 behind an
+      ``IngestGateway`` and a ``QuantileHTTPServer`` on an ephemeral
+      localhost port, ``POST /ingest`` batches, ticks of 2^20 lanes, then
+      ``GET /live``, ``/rollup``, an ``If-None-Match`` re-poll (304),
+      ``/stats`` and ``/quantiles``;
+   b. windowed serving: the same window with a ring of 64 one-minute slices
+      (an hour), 72 slices of 2^16-lane ticks so the ring wraps, a few keys'
+      levels rising mid-ring, a ``GET`` between seals, then
+      ``/quantiles?window=5m``, ``/rollup?window=1h``, ``/rollup?slices=64``,
+      ``/quantiles?slices=1``, malformed windows (400) and a second gateway
+      whose slice clock seals on its own; the final snapshot's windowed
+      tables held bit for bit against a sequential merge fold of the
+      covered nodes, and one windowed query and rollup profiled;
+   c. insert pipelines: ``add_impl(method="matmul" | "sort")`` on a K = 4096
+      bank with 2^20 lanes, and a ``DeviceSketch`` taking 2^20 and 4096
+      values (the auto rule picks sort, then matmul);
+
+   and checks the answers: the relative-error guarantee per row against
+   numpy's exact quantiles, the pinned pipelines equal to the fused one,
+   and, under the ``linear`` mapping, HTTP bodies and sketch quantiles
+   equal to the same session run on the CPU.
 
 It prints the card's name and power limit, then a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -58,6 +76,12 @@ ALPHA_QS = (0.01, 0.25, 0.5, 0.75, 0.95, 0.99)
 U = 2.0**-24  # float32 unit roundoff
 SEED = 0
 DEVICE = "cuda"  # the card; the checks below hold its kernels to the plain versions
+# windowed serving: a one-hour window of one-minute slices
+NUM_SLICES = 64
+SLICE_SECONDS = 60.0
+SLICES_DRIVEN = 72  # so the ring wraps
+SLICE_LANES = 1 << 16
+RM_SLICES = 2 * 6 + 1  # 2 log2(64) node cover + the live bank
 
 # Published peaks of the card (NVIDIA data sheets), by name.
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores, H100 SXM
@@ -234,6 +258,105 @@ def check_quantiles(torch, ops, ref, BucketSpec, device_value_table, rng) -> dic
     return {"max_abs_err": err, "fractional_differing": differ}
 
 
+def range_merge_inputs(torch):
+    """The window query's merge block at full width: (13, 2K, m) integer
+    counts, per-(slice, row) deltas of which ~60% are 0 and the rest 1-6,
+    and a slice mask with two dead slices (their counts stay, as a
+    padding node's do)."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (RM_SLICES, 2 * K, M)
+    counts = torch.randint(0, 1000, shape, generator=g, device=dev).to(torch.float32)
+    deltas = torch.randint(1, 7, shape[:2], generator=g, device=dev, dtype=torch.int32)
+    steady = torch.rand(shape[:2], generator=g, device=dev) < 0.6
+    deltas = torch.where(steady, 0, deltas).to(torch.int32)
+    valid = torch.ones(RM_SLICES, device=dev)
+    valid[[3, 9]] = 0.0
+    return counts, deltas, valid
+
+
+def check_range_merge(torch, ops, ref, BucketSpec) -> dict:
+    spec = BucketSpec()
+    counts, deltas, valid = range_merge_inputs(torch)
+    for d in (deltas, torch.zeros_like(deltas)):  # mixed, then the steady case
+        got = ops.bank_range_merge(counts, d, spec=spec, valid=valid)
+        want = ref.bank_range_merge_ref(counts, d, spec=spec, valid=valid)
+        check(torch.equal(got, want), "bank_range_merge: not bit-exact on integer counts")
+    # fractional counts sum in another order: each bucket of at most
+    # n = live slices * 2^6 terms lies within 2 n u of the plain sum
+    frac = counts * torch.rand(counts.shape, device=counts.device)
+    got = ops.bank_range_merge(frac, deltas, spec=spec, valid=valid)
+    want = ref.bank_range_merge_ref(frac, deltas, spec=spec, valid=valid)
+    n = int(valid.sum()) * 2**6
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    check(rel <= 2 * n * U, f"bank_range_merge fractional: relative error {rel} > 2 n u")
+    return {"max_abs_err": 0.0, "fractional_max_rel_err": rel}
+
+
+def check_histograms(torch, ops, ref, BucketSpec, rng) -> dict:
+    """The segment and single-row histograms on the ingest check's lanes."""
+    dev = torch.device(DEVICE)
+    n = TICK_LANES
+    out = {name: {"max_abs_err": 0.0, "log_moved_lanes": 0.0}
+           for name in ("ddsketch_seg_hist", "ddsketch_hist")}
+    for mapping in ("log", "linear", "cubic"):
+        spec = BucketSpec(mapping=mapping)
+        x, s, lev, pad = ingest_lanes(rng, n, K)
+        wint = rng.integers(0, 4, n).astype(np.float32)
+        wfrac = rng.random(n).astype(np.float32)
+        xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
+        lane_counts = {}
+        for wkind, w in (("none", None), ("int", wint), ("frac", wfrac)):
+            wt = None if w is None else torch.from_numpy(w).to(dev)
+            pairs = {
+                "ddsketch_seg_hist": (
+                    ops.segment_histogram(xt, st_, wt, lt, num_segments=K, spec=spec),
+                    ref.segment_histogram_ref(xt, st_, wt, lt, num_segments=K, spec=spec),
+                ),
+                "ddsketch_hist": (
+                    ops.ddsketch_histogram(xt, wt, lt, spec=spec),
+                    ref.histogram_ref(xt, wt, lt, spec=spec),
+                ),
+            }
+            for name, (got, want) in pairs.items():
+                if wkind == "none":
+                    lane_counts[name] = want
+                diff = (got - want).abs()
+                if wkind == "frac":
+                    # atomic order: each bucket within 2 c u sum(w) of c lanes
+                    check(bool((diff <= 2 * lane_counts[name] * U * want.abs()).all()),
+                          f"{name} {mapping}/frac: a bucket beyond 2 c u sum(w)")
+                elif mapping == "log":
+                    # two logf builds may move a boundary lane one bucket
+                    moved = float(diff.sum()) / 2
+                    out[name]["log_moved_lanes"] = max(out[name]["log_moved_lanes"], moved)
+                    check(moved <= 1e-5 * n * 3, f"{name} log: {moved} lanes moved")
+                else:
+                    err = float(diff.max())
+                    out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+                    check(err == 0.0, f"{name} {mapping}/{wkind}: not bit-exact ({err})")
+    return out
+
+
+def check_scatter(torch, ops, ref, BucketSpec, rng) -> dict:
+    """The scatter on the compaction of 2^20 lanes into 2K rows, then on
+    keys with duplicates (which must still accumulate)."""
+    dev = torch.device(DEVICE)
+    spec = BucketSpec()
+    x, s, lev, _ = ingest_lanes(rng, TICK_LANES, K)
+    w = rng.integers(0, 4, TICK_LANES).astype(np.float32)
+    xt, st_, lt, wt = (torch.from_numpy(a).to(dev) for a in (x, s, lev, w))
+    keys, wts = ref.compact_triples(xt, st_, wt, lt, num_segments=K, spec=spec)
+    cap = min(TICK_LANES, 2 * K * M + 1)
+    dup = torch.from_numpy(rng.integers(-3, 2 * K * M + 3, TICK_LANES).astype(np.int32)).to(dev)
+    dup[: TICK_LANES // 4] = 12345  # a quarter of the lanes on one key
+    for kk, ww in ((keys[:cap], wts[:cap]), (dup, wt)):
+        got = ops.ddsketch_scatter(kk, ww, num_rows=2 * K, num_buckets=M)
+        want = ref.scatter_histogram_ref(kk, ww, num_rows=2 * K, num_buckets=M)
+        check(torch.equal(got, want), "ddsketch_scatter: not bit-exact")
+    return {"max_abs_err": 0.0, "unique_triples": int((keys < 2 * K * M).sum())}
+
+
 # --------------------------------------------------------------------- #
 # phase 2: the main path, through the entry points a user calls
 # --------------------------------------------------------------------- #
@@ -391,28 +514,21 @@ def serve_session(device: str, mapping: str, ticks: int, posts: int):
     }
 
 
-def check_alpha(torch, session, effective_alpha, BucketSpec) -> dict:
-    """|est - exact| <= alpha(level) |exact| per row, for rows that clamped
-    nothing, against the exact value at the sketch's own float32 rank."""
-    spec = BucketSpec()
-    window, bank = session["window"], session["bank"]
-    est = window.engine.host_rows(window.engine.quantiles(bank, ALPHA_QS))
-    lev = window.engine.host_rows(bank.level)
-    clamped = {int(window.key_to_row.get(e.key, 0)) for e in session["events"]}
-    ovf = window.engine.host_rows(bank.overflow + bank.underflow)
-    rows, vals, wts = session["rows"], session["values"], session["weights"]
+def alpha_rows(est, lev, rows, vals, skip, effective_alpha, spec) -> tuple[int, float]:
+    """|est - exact| <= alpha(level) |exact| for every row of ``est`` but
+    those in ``skip``, against the exact value at the sketch's own float32
+    rank of the finite ``vals`` logged for that row; (rows checked, worst
+    relative error)."""
     keep = np.isfinite(vals)
     rows, vals = rows[keep], vals[keep]
-    reps = wts[keep].astype(np.int64)
-    rows, vals = np.repeat(rows, reps), np.repeat(vals, reps)
     order = np.lexsort((vals, rows))
     rows, vals = rows[order], vals[order]
     starts = np.searchsorted(rows, np.arange(K))
     ends = np.searchsorted(rows, np.arange(K), side="right")
-    checked = worst = 0.0
+    checked, worst = 0, 0.0
     for r in range(K):
         n = ends[r] - starts[r]
-        if n == 0 or r in clamped or ovf[r] > 0:
+        if n == 0 or r in skip:
             continue
         a = effective_alpha(spec, int(lev[r]))
         for j, q in enumerate(ALPHA_QS):
@@ -423,8 +539,301 @@ def check_alpha(torch, session, effective_alpha, BucketSpec) -> dict:
             check(err <= bound, f"row {r} q={q}: |{est[r, j]} - {exact}| > {bound}")
             worst = max(worst, err / abs(exact) if exact else 0.0)
         checked += 1
+    return checked, worst
+
+
+def check_alpha(torch, session, effective_alpha, BucketSpec) -> dict:
+    """The guarantee per row of the serving session's bank, for rows that
+    clamped nothing."""
+    spec = BucketSpec()
+    window, bank = session["window"], session["bank"]
+    est = window.engine.host_rows(window.engine.quantiles(bank, ALPHA_QS))
+    lev = window.engine.host_rows(bank.level)
+    clamped = {int(window.key_to_row.get(e.key, 0)) for e in session["events"]}
+    ovf = window.engine.host_rows(bank.overflow + bank.underflow)
+    skip = clamped | {int(r) for r in np.flatnonzero(ovf > 0)}
+    reps = session["weights"].astype(np.int64)
+    rows = np.repeat(session["rows"], reps)
+    vals = np.repeat(session["values"], reps)
+    checked, worst = alpha_rows(est, lev, rows, vals, skip, effective_alpha, spec)
     check(checked > 0.9 * len(window.key_to_row), f"alpha check covered {checked} rows")
     return {"rows_checked": int(checked), "worst_rel_err": worst, "clamped_rows": len(clamped)}
+
+
+WINDOW_READS = (
+    "/quantiles?endpoint={key}&window=5m&q=0.5,0.9,0.99",
+    "/rollup?window=1h&q=0.01,0.5,0.99,1",
+    "/rollup?slices=64",
+    "/quantiles?endpoint={key}&slices=1",
+)
+WINDOW_BAD = (
+    "/quantiles?endpoint={key}&window=zzz",
+    "/quantiles?endpoint={key}&window=2h",
+    "/quantiles?endpoint={key}&slices=0",
+    "/quantiles?endpoint={key}&slices=65",
+    "/quantiles?endpoint={key}&window=5m&slices=5",
+    "/rollup?window=-1m",
+)
+
+
+def window_session(device: str, mapping: str, *, slices: int, lanes: int, outliers,
+                   poll: bool):
+    """One scripted windowed-serving session over a ring of NUM_SLICES
+    one-minute slices; returns its HTTP bodies, host-clock readings, the
+    windowed estimates for the guarantee check and every ingested
+    (slice, row, value).
+
+    Each slice is one ``record_batches`` tick of ``lanes`` Zipf-keyed
+    Pareto latencies, then (``poll``) a windowed ``GET`` that builds the
+    snapshot, then ``advance_slice``; the last slice stays live.  With
+    ``poll`` the session also reads the windowed estimates of the last 5,
+    60 and 64 slices off its final snapshot.  In the
+    ``outliers`` slices three keys also get values above 1e12, so their
+    levels rise mid-ring and the long windows mix levels.
+    """
+    import torch
+
+    from repro_torch.kernels.ref import BucketSpec
+    from repro_torch.launch.http_api import QuantileHTTPServer, TelemetryFacade
+    from repro_torch.launch.ingest_gateway import IngestGateway
+    from repro_torch.telemetry.keyed import KeyedAggregator, KeyedWindow
+
+    rng = np.random.default_rng(SEED + 1)
+    spec = BucketSpec(mapping=mapping)
+    window = KeyedWindow(spec, CAPACITY, num_slices=NUM_SLICES, slice_seconds=SLICE_SECONDS,
+                         device=device)
+    gateway = IngestGateway(window, start=False)
+    keys = [f"/svc/{i:04d}/latency" for i in range(CAPACITY)]
+    probs = zipf_probs(CAPACITY)
+    hot = [keys[7], keys[CAPACITY // 13], keys[CAPACITY // 2]]
+    log_slice, log_rows, log_vals = [], [], []
+    bodies, clock = {}, {"advance_slice_s": []}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    with QuantileHTTPServer(TelemetryFacade(window, KeyedAggregator(spec)),
+                            gateway=gateway) as server:
+        for i in range(slices):
+            per_key = rng.multinomial(lanes, probs)
+            batches = [(keys[j], latencies(rng, c), None) for j, c in enumerate(per_key) if c]
+            if i in outliers:
+                batches += [(key, np.array([1.5e12, 4e12], np.float32), None) for key in hot]
+            window.record_batches(batches)
+            for key, vals, _ in batches:
+                log_slice.append(np.full(vals.size, i, np.int32))
+                log_rows.append(np.full(vals.size, window.key_to_row[key], np.int32))
+                log_vals.append(vals)
+            if poll:
+                code, _, _ = http(server.url + f"/quantiles?endpoint={keys[0]}&window=5m")
+                check(code == 200, "GET /quantiles?window=5m between seals")
+            if i < slices - 1:
+                sync()
+                start = time.perf_counter()
+                window.advance_slice()
+                sync()
+                clock["advance_slice_s"].append(time.perf_counter() - start)
+        for j, path in enumerate(WINDOW_READS):
+            start = time.perf_counter()
+            code, _, raw = http(server.url + path.format(key=keys[0]))
+            if j == 1:
+                clock["first_rollup_1h_s"] = time.perf_counter() - start
+            check(code == 200, f"GET {path}")
+            bodies[path] = raw
+        for path in WINDOW_BAD:
+            try:
+                http(server.url + path.format(key=keys[0]))
+                raise AssertionError(f"GET {path} did not answer 400")
+            except Exception as e:  # urllib raises HTTPError for a 400
+                check(getattr(e, "code", None) == 400, f"GET {path}: {e}")
+                check("error" in json.loads(e.read()), f"GET {path}: no JSON error body")
+        code, _, raw = http(server.url + "/stats")
+        stats = json.loads(raw)
+        check(stats["engine"]["ring"]["sealed"] == slices - 1, "/stats ring block")
+        bodies["stats_ring"] = stats["engine"]["ring"]
+        est = {}
+        if poll:
+            snap = window.snapshot()
+            est = {w: snap.windowed_row_quantiles(ALPHA_QS, slices=w) for w in (5, 60, 64)}
+            est["rollup_60"] = np.asarray(snap.windowed_rollup(ALPHA_QS, slices=60))
+    seconds = time.perf_counter() - t0
+    return {
+        "bodies": bodies,
+        "window": window,
+        "est": est,
+        "levels": window.engine.host_rows(window.bank.level),
+        "events": list(window.events),
+        "slice": np.concatenate(log_slice),
+        "rows": np.concatenate(log_rows),
+        "values": np.concatenate(log_vals),
+        "seconds": seconds,
+        "clock": clock,
+        "slices": slices,
+    }
+
+
+def check_window_alpha(session, effective_alpha, BucketSpec) -> dict:
+    """The guarantee of the windowed estimates over the last 5, 60 and 64
+    slices, per row for rows that clamped nothing, and for the 60-slice
+    rollup of every row (at the bank's top level)."""
+    spec = BucketSpec()
+    window, last = session["window"], session["slices"] - 1
+    clamped = {int(window.key_to_row[e.key]) for e in session["events"]}
+    out = {"clamped_rows": len(clamped)}
+    for w in (5, 60, 64):
+        inside = session["slice"] > last - w
+        checked, worst = alpha_rows(session["est"][w], session["levels"], session["rows"][inside],
+                                    session["values"][inside], clamped, effective_alpha, spec)
+        check(checked > 0.9 * (len(window.key_to_row) - len(clamped)),
+              f"window {w}: alpha check covered {checked} rows")
+        out[f"slices_{w}"] = {"rows_checked": checked, "worst_rel_err": worst}
+    inside = session["slice"] > last - 60
+    vals = np.sort(session["values"][inside][np.isfinite(session["values"][inside])])
+    a = effective_alpha(spec, int(session["levels"].max()))
+    for j, q in enumerate(ALPHA_QS):
+        exact = float(vals[int(np.floor(np.float32(q) * np.float32(vals.size - 1)))])
+        est = float(session["est"]["rollup_60"][j])
+        check(abs(est - exact) <= a * 1.01 * abs(exact), f"rollup q={q}: {est} vs {exact}")
+    out["rollup_60_lanes"] = int(vals.size)
+    return out
+
+
+def check_window_fold(torch, sbank, window) -> dict:
+    """The windowed tables of the wrapped ring's final snapshot, bit for bit
+    (integer counts), against folding the covered slab nodes and then the
+    live bank one by one with ``sketch_bank.merge`` on the card."""
+    snap = window.snapshot()
+    check(snap.sealed > NUM_SLICES, "the ring never wrapped")
+    out = {"sealed": snap.sealed}
+    for w in (5, 60, 64):
+        nodes, valid = window.ring.query_args_at(snap.sealed, w)
+        cover = [int(n) for n, v in zip(nodes, valid) if v > 0]
+        acc = sbank.SketchBank(*(leaf[cover[0]].clone() for leaf in snap.slab))
+        for node in [*cover[1:], None]:
+            b = snap.bank if node is None else sbank.SketchBank(*(leaf[node] for leaf in snap.slab))
+            sbank.merge(acc, b, spec=window.spec)
+        want = window.engine.host_rows(window.engine.quantiles(acc, ALPHA_QS))
+        got = snap.windowed_row_quantiles(ALPHA_QS, slices=w)
+        check(np.array_equal(got, want, equal_nan=True),
+              f"window {w}: windowed table differs from the sequential merge fold")
+        out[f"slices_{w}_nodes"] = len(cover)
+    return out
+
+
+def profile_window_query(torch, window) -> dict:
+    """One windowed per-row query and one windowed rollup off the final
+    snapshot, each under ``torch.profiler``: the device's busy share and
+    the heaviest device activities."""
+    snap = window.snapshot()
+    out = {}
+    for name, fn in (("query_64", lambda: snap.windowed_row_quantiles(ALPHA_QS, slices=64)),
+                     ("rollup_60", lambda: snap.windowed_rollup(ALPHA_QS, slices=60))):
+        fn()  # warm: the value table and allocator
+        torch.cuda.synchronize()
+        with torch.profiler.profile() as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        out[name] = device_share(torch, prof, wall)
+        # a trace that lost the merge kernel's record understates the busy share
+        out[name]["range_merge_traced"] = any("range_merge" in n for n in out[name]["top_us"])
+    return out
+
+
+def slice_clock(window) -> dict:
+    """A second gateway on the window, with a 0.2 s slice clock: its drain
+    thread seals slices on its own."""
+    from repro_torch.launch.ingest_gateway import IngestGateway
+
+    before = window.ring.sealed
+    gateway = IngestGateway(window, slice_interval_s=0.2)
+    gateway.submit("/svc/0000/latency", latencies(np.random.default_rng(SEED), 1000).tolist())
+    time.sleep(1.0)
+    gateway.stop()
+    stats = gateway.stats()
+    check(stats["drain_errors"] == 0, f"slice-clock gateway: {stats['drain_errors']} errors")
+    check(window.ring.sealed > before, "the slice clock sealed nothing")
+    return {"sealed_before": before, "sealed_after": window.ring.sealed,
+            "slice_advances": stats["slice_advances"]}
+
+
+def insert_inputs(torch, device: str):
+    """2^20 lanes over K = 4096 rows (the ingest check's hazards), integer
+    weights, per-row start levels 0-6, and Pareto values for the single
+    sketch: all from the seed, on ``device``."""
+    rng = np.random.default_rng(SEED + 2)
+    x, s, _, _ = ingest_lanes(rng, TICK_LANES, K)
+    w = rng.integers(0, 4, TICK_LANES).astype(np.float32)
+    levels = rng.integers(0, 7, K).astype(np.int32)
+    sketch_vals = (rng.pareto(1.0, TICK_LANES) + 1.0).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, s, w, levels, sketch_vals)]
+
+
+def insert_banks(sbank, spec, inputs, methods):
+    """One K = 4096 bank per method: start levels, then an unweighted and
+    a weighted ``add_impl`` of the 2^20 lanes."""
+    x, s, w, levels, _ = inputs
+    out = {}
+    for method in methods:
+        bank = sbank.empty(spec, K, device=x.device)
+        sbank.collapse_to(bank, levels, spec=spec)
+        for weights in (None, w):
+            sbank.add_impl(bank, x, s, weights, spec=spec, method=method)
+        out[method] = bank
+    return out
+
+
+def insert_sketches(tsk, spec, inputs):
+    """Two ``DeviceSketch``es through the auto rule: 2^20 values (sort) and
+    the first 4096 (matmul); their quantiles at QS8."""
+    vals = inputs[4]
+    out = {}
+    for n in (TICK_LANES, 4096):
+        sk = tsk.add(tsk.empty(spec, device=vals.device), vals[:n], spec=spec)
+        out[n] = (sk, tsk.quantiles(sk, QS8, spec=spec))
+    return out
+
+
+def check_insert(torch, banks, fused, inputs) -> dict:
+    """Each pinned pipeline's bank equals the fused one leaf for leaf:
+    bit-exact but ``summ``, held to 2 n u sum|w x| per row (its lanes sum
+    in another order), and the extrema compared numerically."""
+    x, s, w, _, _ = inputs
+    valid = torch.isfinite(x) & (s >= 0) & (s < K)
+    rows = s.clamp(0, K - 1).long()[valid]
+    absum = torch.zeros(K, device=x.device).index_add_(0, rows, ((1 + w) * x).abs()[valid])
+    nrow = torch.zeros(K, device=x.device).index_add_(0, rows, torch.ones_like(x)[valid])
+    worst = 0.0
+    for method, bank in banks.items():
+        for name, got, want in zip(bank._fields, bank, fused):
+            if name == "summ":
+                diff = (got - want).abs()
+                check(bool((diff <= 2 * (nrow + 1) * U * absum).all()),
+                      f"{method}: summ beyond 2 n u sum|wx|")
+                worst = max(worst, float(diff.max()))
+            else:
+                check(bool((got == want).all()), f"{method}: {name} differs from the fused bank")
+    return {"max_abs_err": 0.0, "summ_max_abs_diff": worst}
+
+
+def check_sketch_alpha(sketches, inputs, effective_alpha, spec) -> dict:
+    vals = inputs[4].cpu().numpy()
+    out = {}
+    for n, (sk, q) in sketches.items():
+        s = np.sort(vals[:n])
+        a = effective_alpha(spec, int(sk.level))
+        worst = 0.0
+        for j, qq in enumerate(QS8[1:-1], start=1):
+            exact = float(s[int(np.floor(np.float32(qq) * np.float32(n - 1)))])
+            err = abs(float(q[j]) - exact)
+            check(err <= a * 1.01 * abs(exact), f"DeviceSketch n={n} q={qq}: {float(q[j])}")
+            worst = max(worst, err / abs(exact))
+        check(float(q[0]) == float(s[0]) and float(q[-1]) == float(s[-1]), "sketch extrema")
+        out[n] = worst
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -486,26 +895,117 @@ def timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng) -> di
     nbytes = 2 * K * M * 4 + 4 * K * 4 + table.numel() * 4 + nq * 4 + K * nq * 4
     b, by = bound_ms(nbytes, (2 + nq) * K * (2 * M + 1), bw)  # scan + Q rank counts
     out["bank_quantiles"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None)
+
+    # the range merge at the window query's block, as ops.bank_range_merge
+    # hands it to the kernel (deltas clipped, dead slices at -1)
+    counts, deltas, valid = range_merge_inputs(torch)
+    rm = wrappers["bank_range_merge"]
+    kd = torch.where(valid[:, None] > 0, deltas, -1).to(torch.int32).contiguous()
+    k0 = torch.where(valid[:, None] > 0, 0, -1).to(torch.int32).expand_as(kd).contiguous()
+    t_k = time_ms(torch, lambda: rm(counts, kd, spec=spec))
+    t_k0 = time_ms(torch, lambda: rm(counts, k0, spec=spec))
+    t_p = time_ms(torch, lambda: ref.bank_range_merge_ref(counts, deltas, spec=spec, valid=valid))
+    t_l = time_ms(torch, lambda: torch.einsum("d,drm->rm", valid, counts))
+    live = int(valid.sum())  # dead slices need not be read
+    rows = 2 * K
+    b, by = bound_ms((live + 1) * rows * M * 4 + RM_SLICES * rows * 4, live * rows * M, bw)
+    out["bank_range_merge"] = dict(
+        ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=t_l,
+        library_covers="every delta 0 (einsum over the slice axis); ms_every_delta_0 is the "
+                       "kernel on that case",
+        ms_every_delta_0=t_k0,
+    )
+    del counts, deltas, kd, k0
+
+    x, s, lev, _ = ingest_lanes(rng, TICK_LANES, K)
+    xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
+    seg, hist = wrappers["ddsketch_seg_hist"], wrappers["ddsketch_hist"]
+    t_k = time_ms(torch, lambda: seg(xt, st_, None, lt, num_segments=K, spec=spec))
+    t_p = time_ms(torch, lambda: ref.segment_histogram_ref(xt, st_, None, lt, num_segments=K,
+                                                           spec=spec))
+    b, by = bound_ms(12 * TICK_LANES + K * M * 4, 32 * TICK_LANES, bw)  # x, ids, levels; hist
+    out["ddsketch_seg_hist"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
+                                    library_ms=None)
+    t_k = time_ms(torch, lambda: hist(xt, None, lt, spec=spec))
+    t_p = time_ms(torch, lambda: ref.histogram_ref(xt, None, lt, spec=spec))
+    b, by = bound_ms(8 * TICK_LANES + M * 4, 32 * TICK_LANES, bw)  # x, levels; one row
+    out["ddsketch_hist"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None)
+
+    keys, wts = ref.compact_triples(xt, st_, None, lt, num_segments=K, spec=spec)
+    cap = min(TICK_LANES, 2 * K * M + 1)
+    kk, ww = keys[:cap].contiguous(), wts[:cap].contiguous()
+    live_keys = kk < 2 * K * M
+    kin, win = kk[live_keys].long(), ww[live_keys]
+    scat = wrappers["ddsketch_scatter"]
+    t_k = time_ms(torch, lambda: scat(kk, ww, num_rows=2 * K, num_buckets=M))
+    t_p = time_ms(torch, lambda: ref.scatter_histogram_ref(kk, ww, num_rows=2 * K,
+                                                           num_buckets=M))
+    t_l = time_ms(torch, lambda: torch.bincount(kin, win, minlength=2 * K * M))
+    u = int(kin.numel())  # the triples this run's data holds
+    b, by = bound_ms(8 * u + 2 * K * M * 4, u, bw)
+    out["ddsketch_scatter"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by,
+                                   library_ms=t_l, triples=u)
     return out
 
 
 # --------------------------------------------------------------------- #
+REPLACES = {
+    "ddsketch_ingest": "src/repro/kernels/ddsketch_ingest.py:59",
+    "fold_pairs": "src/repro/kernels/fold_pairs.py:40",
+    "bank_quantiles": "src/repro/kernels/bank_quantiles.py:37",
+    "bank_range_merge": "src/repro/kernels/bank_range_merge.py:52",
+    "ddsketch_seg_hist": "src/repro/kernels/ddsketch_seg_hist.py:47",
+    "ddsketch_hist": "src/repro/kernels/ddsketch_hist.py:42",
+    "ddsketch_scatter": "src/repro/kernels/ddsketch_scatter.py:53",
+}
+# the path whose run a kernel's launch count comes from
+HOME_PATH = {
+    "ddsketch_ingest": "serving",
+    "fold_pairs": "serving",
+    "bank_quantiles": "serving",
+    "bank_range_merge": "window",
+    "ddsketch_seg_hist": "insert",
+    "ddsketch_hist": "insert",
+    "ddsketch_scatter": "insert",
+}
+# the kernels each path must have launched
+PATH_KERNELS = {
+    "serving": ("ddsketch_ingest", "fold_pairs", "bank_quantiles"),
+    "window": ("ddsketch_ingest", "fold_pairs", "bank_quantiles", "bank_range_merge"),
+    "insert": ("ddsketch_seg_hist", "ddsketch_hist", "ddsketch_scatter", "fold_pairs",
+               "bank_quantiles"),
+}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    from repro_torch.core import sketch_bank as sbank
+    from repro_torch.core import torch_sketch as tsk
     from repro_torch.core.torch_sketch import effective_alpha
     from repro_torch.engine.tables import device_value_table
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bank_quantiles import bank_quantiles_cuda
+    from repro_torch.kernels.bank_range_merge import bank_range_merge_cuda
+    from repro_torch.kernels.ddsketch_hist import histogram_cuda
     from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda
+    from repro_torch.kernels.ddsketch_scatter import scatter_cuda
+    from repro_torch.kernels.ddsketch_seg_hist import segment_histogram_cuda
     from repro_torch.kernels.fold_pairs import fold_pairs_cuda
     from repro_torch.kernels.ref import BucketSpec
 
-    wrappers = {"ddsketch_ingest": ddsketch_ingest_cuda, "fold_pairs": fold_pairs_cuda,
-                "bank_quantiles": bank_quantiles_cuda}
+    wrappers = {
+        "ddsketch_ingest": ddsketch_ingest_cuda,
+        "fold_pairs": fold_pairs_cuda,
+        "bank_quantiles": bank_quantiles_cuda,
+        "bank_range_merge": bank_range_merge_cuda,
+        "ddsketch_seg_hist": segment_histogram_cuda,
+        "ddsketch_hist": histogram_cuda,
+        "ddsketch_scatter": scatter_cuda,
+    }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -514,38 +1014,55 @@ def main() -> int:
     bw = mem_bandwidth(name)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"memory rate taken as {bw / 1e12} TB/s")
+    t_run = time.perf_counter()
 
     t = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t:.2f} s (nvcc, one process per source)")
 
+    # phase 2: every kernel against its plain version
     rng = np.random.default_rng(SEED)
     t = time.perf_counter()
     errs = {
         "ddsketch_ingest": check_ingest(torch, ops, ref, BucketSpec, rng),
         "fold_pairs": check_fold(torch, ops, ref, BucketSpec, rng),
         "bank_quantiles": check_quantiles(torch, ops, ref, BucketSpec, device_value_table, rng),
+        "bank_range_merge": check_range_merge(torch, ops, ref, BucketSpec),
+        **check_histograms(torch, ops, ref, BucketSpec, rng),
+        "ddsketch_scatter": check_scatter(torch, ops, ref, BucketSpec, rng),
     }
     log(f"kernels vs plain versions: {json.dumps(errs)} ({time.perf_counter() - t:.1f} s)")
 
-    # timed before the main path, whose last tick runs under the profiler
+    # phase 4, run first: the serving path's last tick runs under the profiler
     times = timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng)
     log(f"kernel times (ms): {json.dumps(times)}")
+    torch.cuda.empty_cache()
 
-    ops.reset_dispatch_stats()
-    main_run = serve_session("cuda", "log", ticks=4, posts=24)
-    torch.cuda.synchronize()
-    launches = ops.dispatch_stats()["launches"]
-    log(f"main path: {main_run['lanes']} lanes, {main_run['seconds']:.2f} s, "
-        f"launches {launches}, collapse events {len(main_run['events'])}")
-    for kname, count in launches.items():
-        check(count > 0, f"main path never launched {kname}")
+    launches = {}
+
+    def drive(path, fn):
+        """Run one path with the launch counters zeroed just before and
+        read just after; every kernel of the path must have launched."""
+        ops.reset_dispatch_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = ops.dispatch_stats()["launches"]
+        for kname in PATH_KERNELS[path]:
+            check(launches[path][kname] > 0, f"the {path} path never launched {kname}")
+        log(f"{path} path launches: {launches[path]}")
+        return out
+
+    # phase 3a: serving
+    main_run = drive("serving", lambda: serve_session("cuda", "log", ticks=4, posts=24))
+    log(f"serving path: {main_run['lanes']} lanes, {main_run['seconds']:.2f} s, "
+        f"collapse events {len(main_run['events'])}")
     check(len(main_run["events"]) > 0, "the outlier key never fired a reactive collapse")
     alpha = check_alpha(torch, main_run, effective_alpha, BucketSpec)
     log(f"relative-error guarantee: {json.dumps(alpha)}")
     log(f"host clock (s): {json.dumps(main_run['clock'])}")
     stats = main_run["bodies"]["stats"]
     log(f"/stats engine: {json.dumps(stats['engine'])}")
+    del main_run
 
     lin_gpu = serve_session("cuda", "linear", ticks=2, posts=8)
     lin_cpu = serve_session("cpu", "linear", ticks=2, posts=8)
@@ -554,25 +1071,75 @@ def main() -> int:
               f"linear /{path} body differs between the card and the CPU")
     log(f"linear session: /live ({len(lin_gpu['bodies']['live'])} bytes) and /rollup bodies "
         f"equal on card and CPU ({lin_gpu['seconds']:.2f} s card, {lin_cpu['seconds']:.2f} s CPU)")
+    del lin_gpu, lin_cpu
 
-    replaces = {
-        "ddsketch_ingest": "src/repro/kernels/ddsketch_ingest.py:59",
-        "fold_pairs": "src/repro/kernels/fold_pairs.py:40",
-        "bank_quantiles": "src/repro/kernels/bank_quantiles.py:37",
-    }
+    # phase 3b: windowed serving
+    win = drive("window", lambda: window_session(
+        "cuda", "log", slices=SLICES_DRIVEN, lanes=SLICE_LANES, outliers=range(20, 31),
+        poll=True))
+    check(len(win["events"]) > 0, "no key's level rose mid-ring")
+    walpha = check_window_alpha(win, effective_alpha, BucketSpec)
+    adv = win["clock"]["advance_slice_s"]
+    log(f"window path: {win['values'].size} lanes over {win['slices']} slices, "
+        f"{win['seconds']:.2f} s, collapse events {len(win['events'])}, "
+        f"ring {json.dumps(win['bodies']['stats_ring'])}")
+    log(f"window guarantee: {json.dumps(walpha)}")
+    log(f"window fold: {json.dumps(check_window_fold(torch, sbank, win['window']))}")
+    log(f"window query profile: {json.dumps(profile_window_query(torch, win['window']))}")
+    log(f"window host clock (s): advance_slice median {statistics.median(adv)}, "
+        f"max {max(adv)}, first /rollup?window=1h {win['clock']['first_rollup_1h_s']}")
+    log(f"slice clock: {json.dumps(slice_clock(win['window']))}")
+    del win
+    torch.cuda.empty_cache()
+    wl_gpu, wl_cpu = (
+        window_session(dev, "linear", slices=12, lanes=1 << 14, outliers=range(3, 6),
+                       poll=False)
+        for dev in ("cuda", "cpu")
+    )
+    for path in (*WINDOW_READS, "stats_ring"):
+        check(wl_gpu["bodies"][path] == wl_cpu["bodies"][path],
+              f"linear windowed {path} differs between the card and the CPU")
+    log(f"linear window session: {len(WINDOW_READS)} windowed bodies equal on card and CPU "
+        f"({wl_gpu['seconds']:.2f} s card, {wl_cpu['seconds']:.2f} s CPU)")
+    del wl_gpu, wl_cpu
+    torch.cuda.empty_cache()
+
+    # phase 3c: the insert pipelines and the single sketch
+    spec = BucketSpec()
+    inputs = insert_inputs(torch, DEVICE)
+    fused = insert_banks(sbank, spec, inputs, ("fused",))["fused"]
+
+    def insert_path():
+        return (insert_banks(sbank, spec, inputs, ("matmul", "sort")),
+                insert_sketches(tsk, spec, inputs))
+
+    banks, sketches = drive("insert", insert_path)
+    ins = check_insert(torch, banks, fused, inputs)
+    sk_alpha = check_sketch_alpha(sketches, inputs, effective_alpha, spec)
+    lin = BucketSpec(mapping="linear")
+    q_gpu = insert_sketches(tsk, lin, inputs)
+    q_cpu = insert_sketches(tsk, lin, insert_inputs(torch, "cpu"))
+    for n in q_gpu:
+        check(torch.equal(q_gpu[n][1].cpu(), q_cpu[n][1]),
+              f"linear DeviceSketch n={n}: quantiles differ between the card and the CPU")
+    log(f"insert path: matmul and sort banks equal the fused bank ({json.dumps(ins)}); "
+        f"DeviceSketch worst relative error {json.dumps(sk_alpha)}; linear sketch quantiles "
+        "equal on card and CPU")
+
     kernels = []
     for kname in _build.KERNELS:
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{kname}.cu",
-            "replaces": replaces[kname],
-            "launches": launches[kname],
+            "replaces": REPLACES[kname],
+            "launches": launches[HOME_PATH[kname]][kname],
             "max_abs_err": errs[kname]["max_abs_err"],
             **times[kname],
         })
     for row in kernels:
         check(all(math.isfinite(row[k]) for k in ("ms", "plain_ms", "bound_ms")), "timings")
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,15 +2,17 @@
 
 The multi-tenant bank of the serving path: one fixed-geometry sketch per
 metric key, so inserting a stream of ``(value, sketch_id)`` pairs is one
-segmented histogram (the fused ingest kernel), ``merge`` is a per-bucket
-sum after the rows align their collapse levels, and ``quantiles_impl``
-answers every row and every q in one fused query.  Each row carries its
-own uniform-collapse ``level`` (UDDSketch).
+segmented histogram (the fused ingest kernel, or the matmul / sort insert
+pipelines when pinned), ``merge`` is a per-bucket sum after the rows align
+their collapse levels, and ``quantiles_impl`` answers every row and every
+q in one fused query.  Each row carries its own uniform-collapse ``level``
+(UDDSketch).
 
 State is updated **in place**: ``add_impl``, ``collapse``, ``collapse_to``,
-``auto_collapse`` and ``merge`` (its left operand) write into the bank's
-own tensors and return the bank.  This is the port's form of the JAX
-engine's buffer donation; callers that need the old state clone it first.
+``auto_collapse``, ``merge`` (its left operand) and ``set_row`` write into
+the bank's own tensors and return the bank.  This is the port's form of
+the JAX engine's buffer donation; callers that need the old state clone it
+first.
 The bank's device picks the implementation of every kernel it reaches (the
 hand-written CUDA kernel on the card, the plain version on the CPU).
 """
@@ -25,8 +27,9 @@ import torch
 
 from repro_torch.core import torch_sketch
 from repro_torch.core.ddsketch import DDSketch
+from repro_torch.core.torch_sketch import DeviceSketch
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import MAX_COLLAPSE_LEVEL, BucketSpec, f32
+from repro_torch.kernels.ref import MAX_COLLAPSE_LEVEL, BucketSpec, f32, shift_key
 
 __all__ = [
     "SketchBank",
@@ -37,6 +40,8 @@ __all__ = [
     "collapse",
     "collapse_to",
     "auto_collapse",
+    "row",
+    "set_row",
     "to_host",
     "from_host",
     "to_numpy",
@@ -89,14 +94,8 @@ def empty(
 
 
 def _check_method(method) -> None:
-    if method in (None, "fused"):
-        return
-    if method in ("matmul", "sort"):
-        raise NotImplementedError(
-            f'method="{method}" is not ported yet (ROADMAP.md queue 1 item 8); '
-            "the port ingests through the fused kernel"
-        )
-    raise ValueError(f"method must be None, 'fused', 'matmul' or 'sort', got {method!r}")
+    if method not in (None, "fused", "matmul", "sort"):
+        raise ValueError(f"method must be None, 'fused', 'matmul' or 'sort', got {method!r}")
 
 
 def add_impl(
@@ -111,12 +110,21 @@ def add_impl(
 ) -> SketchBank:
     """Vectorized Algorithm 1 over ``(value, sketch_id)`` pairs, in place.
 
-    One fused ingest (histograms and the six aux stats) updates all K rows.
     Non-finite values and out-of-range ids are ignored; each value is keyed
     at its row's collapse level.  With ``auto_collapse=True`` every touched
     row first collapses to the smallest level at which all of its batch
-    values are indexable, so nothing clamps.  Only the fused pipeline is
-    ported (``method`` None or "fused").
+    values are indexable, so nothing clamps.
+
+    ``method`` picks the insert pipeline.  None and ``"fused"`` take the
+    fused ingest kernel (histograms and the six row stats in one launch).
+    ``"matmul"`` (two segment-histogram launches) and ``"sort"`` (the
+    compaction and the scatter launch) go through ``ops.bank_histograms``
+    and then one pass for the row stats (``index_add_`` and
+    ``scatter_reduce_``).  The JAX package's off-TPU auto rule
+    (``picked_insert_method``) was tuned on XLA CPU, not on the card, so
+    ``method=None`` stays on the fused kernel here.  All pipelines give the
+    same histograms and counters for integer weights; ``summ`` differs in
+    summation order.
     """
     _check_method(method)
     k = bank.num_sketches
@@ -129,29 +137,50 @@ def add_impl(
         else torch.as_tensor(weights).reshape(-1).to(dev, torch.float32)
     )
     sc = torch.clamp(s, 0, max(k - 1, 0)).to(torch.int64)
-    if auto_collapse:
+    fused = method in (None, "fused")
+    if auto_collapse or not fused:  # the level-0 keys of the valid pos/neg lanes
         mi = f32(spec.min_indexable)
         valid = torch.isfinite(x) & (s >= 0) & (s < k)
         binned = valid & ((x > mi) | (x < -mi))
         k0 = torch_sketch._raw_keys(x, binned, spec)
+    if auto_collapse:
         needed = torch.where(binned, torch_sketch._needed_levels(k0, spec), 0)
         per_row = torch.zeros(k, dtype=torch.int32, device=dev)
         per_row.scatter_reduce_(0, sc, needed.to(torch.int32), "amax")
         collapse_to(bank, torch.maximum(bank.level, per_row), spec=spec)
-    shifts = bank.level[sc]  # per-value levels for the kernel
+    shifts = bank.level[sc]  # per-value levels for the kernels
 
-    pos_h, neg_h, st = ops.fused_ingest(
-        x, s, raw_w, shifts, num_segments=k, spec=spec
-    )
     cd = bank.pos.dtype
+    if fused:
+        pos_h, neg_h, st = ops.fused_ingest(x, s, raw_w, shifts, num_segments=k, spec=spec)
+        stats = st[:4]
+        vmin, vmax = st.vmin, st.vmax
+    else:
+        pos_h, neg_h = ops.bank_histograms(
+            x, s, raw_w, shifts, num_segments=k, spec=spec, method=method
+        )
+        # the row stats: clamp accounting of the level-shifted keys, the
+        # zero counter, the sum and the extrema of lanes with w > 0
+        w = torch.where(valid, torch.ones_like(x) if raw_w is None else raw_w, 0.0)
+        k_lev = shift_key(k0, shifts)
+        over = binned & (k_lev > spec.offset + spec.num_buckets - 1)
+        under = binned & (k_lev < spec.offset)
+        is_zero = valid & ~binned
+        cols = torch.stack([w * is_zero, w * over, w * under, w * torch.where(valid, x, 0.0)], 1)
+        stats = torch.zeros((k, 4), dtype=torch.float32, device=dev).index_add_(0, sc, cols).T
+        contributes = valid & (w > 0)
+        vmin = torch.full((k,), math.inf, dtype=torch.float32, device=dev)
+        vmax = torch.full((k,), -math.inf, dtype=torch.float32, device=dev)
+        vmin.scatter_reduce_(0, sc, torch.where(contributes, x, math.inf), "amin")
+        vmax.scatter_reduce_(0, sc, torch.where(contributes, x, -math.inf), "amax")
     bank.pos.add_(pos_h.to(cd))
     bank.neg.add_(neg_h.to(cd))
-    bank.zero.add_(st.zero.to(cd))
-    bank.overflow.add_(st.overflow.to(cd))
-    bank.underflow.add_(st.underflow.to(cd))
-    bank.summ.add_(st.summ)
-    torch.minimum(bank.vmin, st.vmin, out=bank.vmin)
-    torch.maximum(bank.vmax, st.vmax, out=bank.vmax)
+    bank.zero.add_(stats[0].to(cd))
+    bank.overflow.add_(stats[1].to(cd))
+    bank.underflow.add_(stats[2].to(cd))
+    bank.summ.add_(stats[3])
+    torch.minimum(bank.vmin, vmin, out=bank.vmin)
+    torch.maximum(bank.vmax, vmax, out=bank.vmax)
     return bank
 
 
@@ -232,6 +261,22 @@ def quantiles_impl(bank: SketchBank, qs, *, spec: BucketSpec) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- #
+# row access
+# --------------------------------------------------------------------- #
+def row(bank: SketchBank, k: int) -> DeviceSketch:
+    """Row ``k`` as a standalone ``DeviceSketch`` of copies: a view would be
+    overwritten by the bank's next in-place tick."""
+    return DeviceSketch(*(field[k].clone() for field in bank))
+
+
+def set_row(bank: SketchBank, k: int, sketch: DeviceSketch) -> SketchBank:
+    """Replace row ``k`` with a ``DeviceSketch``'s state, in place."""
+    for bf, sf in zip(bank, sketch):
+        bf[k].copy_(sf)
+    return bank
+
+
+# --------------------------------------------------------------------- #
 # host <-> device moves
 # --------------------------------------------------------------------- #
 def _host(x) -> np.ndarray:
@@ -241,25 +286,31 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def to_numpy(bank: SketchBank) -> SketchBank:
-    """The nine leaves as numpy arrays, in field order (one copy each)."""
-    return SketchBank(*(_host(t) for t in bank))
+def to_numpy(state):
+    """The nine leaves of a bank, a slab or a ``DeviceSketch`` as numpy
+    arrays, in field order and in the same NamedTuple (one copy each)."""
+    return type(state)(*(_host(t) for t in state))
 
 
-def from_numpy(leaves: Sequence, *, device) -> SketchBank:
-    """A bank on ``device`` from nine leaves in the JAX package's field
-    order (``SketchEngine.host_bank`` or ``jax.tree.map(np.asarray, bank)``
-    gives them).  Counts keep their dtype, which must be float32 or int32;
-    ``summ`` / ``vmin`` / ``vmax`` are float32 and ``level`` int32.  The
-    bank owns copies, so its in-place updates never reach ``leaves``."""
+def from_numpy(leaves: Sequence, *, device):
+    """A bank, a slab or a single sketch on ``device`` from nine leaves in
+    the JAX package's field order (``jax.tree.map(np.asarray, state)`` gives
+    them).  ``(m,)`` bucket leaves make a ``DeviceSketch``, ``(K, m)`` a
+    ``SketchBank`` and ``(nodes, K, m)`` a slab (a ``SketchBank`` with a
+    leading node axis on every leaf).  Counts keep their dtype, which must
+    be float32 or int32; ``summ`` / ``vmin`` / ``vmax`` are float32 and
+    ``level`` int32.  The state owns copies, so its in-place updates never
+    reach ``leaves``."""
     leaves = [np.asarray(x) for x in leaves]
     if len(leaves) != len(SketchBank._fields):
         raise ValueError(f"expected {len(SketchBank._fields)} leaves, got {len(leaves)}")
+    if leaves[0].ndim not in (1, 2, 3):
+        raise ValueError(f"bucket leaves must be (m,), (K, m) or (nodes, K, m), "
+                         f"got {leaves[0].shape}")
     cd = torch_sketch._counts_dtype(leaves[0].dtype)
     dtypes = [cd] * 5 + [torch.float32] * 3 + [torch.int32]
-    return SketchBank(
-        *(torch.tensor(x, dtype=dt, device=device) for x, dt in zip(leaves, dtypes))
-    )
+    kind = DeviceSketch if leaves[0].ndim == 1 else SketchBank
+    return kind(*(torch.tensor(x, dtype=dt, device=device) for x, dt in zip(leaves, dtypes)))
 
 
 def to_host(bank: SketchBank, spec: BucketSpec, k: int) -> DDSketch:

@@ -26,37 +26,17 @@
 // split bit patterns), which order -0.0 below +0.0; callers compare them
 // numerically.
 //
-// Bit-exactness: the key is ceil(approx_log(|x|) * multiplier) with every
-// product and sum of the interpolated mappings and the multiply by the
-// float32 multiplier written as __fmul_rn / __fadd_rn, so nvcc cannot
-// contract them into FMAs and move boundary lanes to the next bucket.
-// The "log" mapping calls logf, the same function torch.log runs on the
-// card.  Histograms and counters are exact for integer-valued weights;
-// summ and fractional weights depend on the atomic order.
+// Bit-exactness: the bucket key comes from bucket_key.cuh, shared with the
+// histogram kernels (no contracted FMAs, the same logf as torch.log).
+// Histograms and counters are exact for integer-valued weights; summ and
+// fractional weights depend on the atomic order.
+#include "bucket_key.cuh"
 #include "common.cuh"
-
-#include <math.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 8192;
-
-__device__ __forceinline__ float approx_log(float x, int mapping) {
-  if (mapping == 0) return logf(x);
-  const int bits = __float_as_int(x);
-  const int e = ((bits >> 23) & 0xFF) - 127;
-  const float f = __fmul_rn(static_cast<float>(bits & 0x7FFFFF), 1.1920928955078125e-07f);
-  if (mapping == 1) return __fadd_rn(static_cast<float>(e), f);
-  // ((A f + B) f + C) f with the float32 roundings of 6/35, -3/5, 10/7
-  const float a = static_cast<float>(6.0 / 35.0);
-  const float b = static_cast<float>(-3.0 / 5.0);
-  const float c = static_cast<float>(10.0 / 7.0);
-  float p = __fadd_rn(__fmul_rn(a, f), b);
-  p = __fadd_rn(__fmul_rn(p, f), c);
-  p = __fmul_rn(p, f);
-  return __fadd_rn(static_cast<float>(e), p);
-}
 
 // Float min / max through integer atomics on the float's own storage:
 // non-negative floats order like signed ints, negative ones in reverse
@@ -114,13 +94,11 @@ ingest_kernel(const float* __restrict__ values, const int* __restrict__ ids,
         const bool is_pos = x > min_indexable;
         const bool is_neg = x < -min_indexable;
         if (is_pos || is_neg) {
-          // shifts past 31 fill with the sign, as XLA's arithmetic shift does
-          const int lev = levels != nullptr ? min(max(levels[i], 0), 31) : 0;
-          const float key = ceilf(__fmul_rn(approx_log(fabsf(x), mapping), multiplier));
-          const int k_lev = -((-static_cast<int>(key)) >> lev);
+          const int lev = levels != nullptr ? repro::clamp_level(levels[i]) : 0;
+          const int k_lev = repro::level_key(fabsf(x), mapping, multiplier, lev);
           if (k_lev > top_key) ov = w;
           if (k_lev < offset) un = w;
-          const int idx = min(max(k_lev - offset, 0), m - 1);
+          const int idx = repro::bucket_of(k_lev, offset, m);
           const long long r = row + (is_neg ? k : 0);
           atomicAdd(hist + r * m + idx, w);
         } else {

@@ -13,9 +13,14 @@ is later work.
 Batches are padded to the next power of two with inert lanes (NaN value /
 id -1 / weight 0), so the kernels see the same shapes as the JAX path.
 
+The window-ring slab (``new_slab``) is a bank with a leading node axis;
+``seal_slice`` and ``merge_node`` write into it in place, and
+``window_query`` / ``window_rollup`` answer a slice range through one
+``bank_range_merge`` launch (``window_merge_bank``).
+
 The engine's ``device`` defaults to the card; ``device="cuda"`` without a
-CUDA device raises instead of carrying on on the CPU.  The window paths
-(``ROADMAP.md`` queue 1 item 7) and row sharding (item 10) are not ported.
+CUDA device raises instead of carrying on on the CPU.  Row sharding
+(``ROADMAP.md`` queue 1 item 10) is not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from repro_torch.engine.tables import next_pow2
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MAX_COLLAPSE_LEVEL, BucketSpec, f32
 
-__all__ = ["SketchEngine", "make_engine", "resolve_device"]
+__all__ = ["SketchEngine", "make_engine", "resolve_device", "window_merge_bank"]
 
 _MIN_BATCH = 32  # smallest padded ingest batch
 
@@ -46,6 +51,78 @@ def resolve_device(device) -> torch.device:
             'device="cpu" to run the plain PyTorch path'
         )
     return dev
+
+
+def window_merge_bank(
+    slab: SketchBank,
+    bank: SketchBank,
+    nodes: torch.Tensor,
+    valid: torch.Tensor,
+    live: torch.Tensor,
+    *,
+    spec: BucketSpec,
+) -> SketchBank:
+    """A window query's merge: slab nodes plus the live bank -> one bank.
+
+    Gathers the ``(D,)`` ``nodes`` of the slab (``valid`` is their (D,)
+    0/1 mask; padding entries point at node 0 and contribute nothing),
+    appends the live bank as one more slice gated by the 0-d ``live``,
+    reconciles every slice row to the range's per-row max collapse level
+    and sums the slice axis.  Returns a float32 ``SketchBank`` of the
+    merged rows, bit-identical for integer-valued counts to merging the
+    slices one by one with ``sketch_bank.merge``.
+
+    The pos and neg stores ride ONE ``ops.bank_range_merge`` launch over a
+    stacked ``(D+1, 2K, m)`` block on every query.  The reference picks a
+    steady-state sum or the reconciling merge with a ``lax.cond``; here
+    the merge's delta-0 case is the steady sum, so no host read picks a
+    branch.  The slice order is nodes ``0..D-1``, then the live bank (the
+    reference's reconciliation order; its steady branch adds the live bank
+    first, which matters for fractional counts only).
+    """
+    f32_ = torch.float32
+    k, m = bank.pos.shape
+    d = nodes.numel()
+    mask = torch.cat([valid.to(f32_).reshape(-1), live.to(f32_).reshape(1)])  # (D+1,)
+    alive = mask > 0
+
+    def stacked(node_leaf, bank_leaf):  # (D+1, K) float32
+        return torch.cat([node_leaf.index_select(0, nodes).to(f32_), bank_leaf.to(f32_)[None]])
+
+    lvl = torch.cat([slab.level.index_select(0, nodes), bank.level[None]])  # (D+1, K)
+    target = torch.where(alive[:, None], lvl, 0).amax(0).to(torch.int32)  # (K,)
+    delta = target[None, :] - lvl
+    # the (D+1, 2K, m) block is written once: each store's nodes are
+    # gathered straight into their rows, the live bank into the last slice
+    counts = torch.empty((d + 1, 2 * k, m), dtype=f32_, device=bank.pos.device)
+    for rows, node_leaf, bank_leaf in ((slice(0, k), slab.pos, bank.pos),
+                                       (slice(k, 2 * k), slab.neg, bank.neg)):
+        if node_leaf.dtype == f32_:
+            torch.index_select(node_leaf, 0, nodes, out=counts[:d, rows])
+        else:
+            counts[:d, rows] = node_leaf.index_select(0, nodes)
+        counts[d, rows] = bank_leaf
+    merged = ops.bank_range_merge(
+        counts, torch.cat([delta, delta], dim=1), spec=spec, valid=mask
+    )
+
+    def msum(node_leaf, bank_leaf):
+        return (stacked(node_leaf, bank_leaf) * mask[:, None]).sum(0)
+
+    def mext(node_leaf, bank_leaf, fill, red):
+        return red(torch.where(alive[:, None], stacked(node_leaf, bank_leaf), fill), 0)
+
+    return SketchBank(
+        pos=merged[:k],
+        neg=merged[k:],
+        zero=msum(slab.zero, bank.zero),
+        overflow=msum(slab.overflow, bank.overflow),
+        underflow=msum(slab.underflow, bank.underflow),
+        summ=msum(slab.summ, bank.summ),
+        vmin=mext(slab.vmin, bank.vmin, float("inf"), torch.amin),
+        vmax=mext(slab.vmax, bank.vmax, float("-inf"), torch.amax),
+        level=target,
+    )
 
 
 def make_engine(
@@ -119,14 +196,14 @@ class SketchEngine:
         return sbank.to_numpy(bank)
 
     def snapshot(self, state: SketchBank) -> SketchBank:
-        """A copy of the bank in fresh tensors.
+        """A copy of the bank (or slab) in fresh tensors.
 
-        The read path's publish step: later in-place ticks on ``state``
-        never touch the copy.  The clones are enqueued on the current
-        stream, the same stream the in-place ingest runs on, so they read
-        the state as of this call.
+        The read path's publish step: later in-place ticks, seals and node
+        merges on ``state`` never touch the copy.  The clones are enqueued
+        on the current stream, the same stream the in-place ingest runs on,
+        so they read the state as of this call.
         """
-        self._note(("snapshot", "bank"))
+        self._note(("snapshot", "slab" if state.pos.dim() == 3 else "bank"))
         return SketchBank(*(t.clone() for t in state))
 
     def reset(self, bank: SketchBank, levels=None) -> SketchBank:
@@ -261,9 +338,12 @@ class SketchEngine:
         """
         qf = np.atleast_1d(np.asarray(qs, np.float32))
         self._note(("rollup", qf.size))
+        return self._rollup(bank, qf)
+
+    def _rollup(self, bank: SketchBank, qf: np.ndarray) -> torch.Tensor:
         gmax = bank.level.max()
         pos, neg = bank.pos, bank.neg
-        steps = int(gmax - bank.level.min()) if self.num_sketches else 0
+        steps = int(gmax - bank.level.min()) if bank.level.numel() else 0
         level = bank.level
         for i in range(steps):
             rows = level < gmax
@@ -280,3 +360,88 @@ class SketchEngine:
             qf,
             spec=self.spec,
         )[0]
+
+    # ------------------------------------------------------------------ #
+    # window-ring slab: stacked per-slice banks + fused range queries
+    # ------------------------------------------------------------------ #
+    def new_slab(self, num_nodes: int) -> SketchBank:
+        """A bank of banks: every leaf gains a leading node axis of
+        ``num_nodes`` (``engine.ring.WindowRing`` owns the node layout).
+        Sealing, node merges and range queries work on it in place, so a
+        ring's memory is one slab."""
+        n, k, m = int(num_nodes), self.num_sketches, self.spec.num_buckets
+        cd, dev = self.counts_dtype, self.device
+        f = dict(dtype=torch.float32, device=dev)
+        return SketchBank(
+            pos=torch.zeros((n, k, m), dtype=cd, device=dev),
+            neg=torch.zeros((n, k, m), dtype=cd, device=dev),
+            zero=torch.zeros((n, k), dtype=cd, device=dev),
+            overflow=torch.zeros((n, k), dtype=cd, device=dev),
+            underflow=torch.zeros((n, k), dtype=cd, device=dev),
+            summ=torch.zeros((n, k), **f),
+            vmin=torch.full((n, k), float("inf"), **f),
+            vmax=torch.full((n, k), float("-inf"), **f),
+            level=torch.zeros((n, k), dtype=torch.int32, device=dev),
+        )
+
+    def seal_slice(self, slab: SketchBank, bank: SketchBank, node) -> SketchBank:
+        """Copy ``bank`` into slab node ``node`` in place; the caller keeps
+        the bank and recycles it through ``reset`` (levels surviving)."""
+        self._note(("slab_seal", slab.level.shape[0]))
+        i = int(node)
+        for leaf, x in zip(slab, bank):
+            leaf[i].copy_(x)
+        return slab
+
+    def merge_node(self, slab: SketchBank, dst, left, right) -> SketchBank:
+        """``slab[dst] = merge(slab[left], slab[right])`` in place: the
+        merge-tree step between two resident nodes.  ``dst`` takes a copy
+        of ``left`` and then merges ``right`` in through views of the node;
+        ``sketch_bank.merge`` aligns ``right`` on a copy, so neither child
+        moves."""
+        self._note(("slab_merge_node", slab.level.shape[0]))
+        d, a, b = int(dst), int(left), int(right)
+        for leaf in slab:
+            leaf[d].copy_(leaf[a])
+        sbank.merge(
+            SketchBank(*(leaf[d] for leaf in slab)),
+            SketchBank(*(leaf[b] for leaf in slab)),
+            spec=self.spec,
+        )
+        return slab
+
+    def _window_args(self, nodes, valid, include_live):
+        dev = self.device
+        nd = torch.as_tensor(np.asarray(nodes, np.int64).reshape(-1)).to(dev)
+        vm = torch.as_tensor(np.asarray(valid, np.float32).reshape(-1)).to(dev)
+        live = torch.tensor(1.0 if include_live else 0.0, device=dev)
+        return nd, vm, live
+
+    def window_query(
+        self, slab: SketchBank, bank: SketchBank, nodes, valid, include_live, qs
+    ) -> torch.Tensor:
+        """Per-row quantiles over a slice range: ``(K, len(qs))``.
+
+        ``nodes`` / ``valid`` are the ring's padded node cover of the range
+        (``WindowRing.query_args``); ``include_live`` gates the live bank.
+        One ``bank_range_merge`` launch and one fused query, whatever the
+        window; the padded cover keeps one (path, geometry) key for every
+        window size.  Reads slab and bank without changing them.
+        """
+        qf = np.atleast_1d(np.asarray(qs, np.float32))
+        nd, vm, live = self._window_args(nodes, valid, include_live)
+        self._note(("window_query", slab.level.shape[0], nd.numel(), qf.size))
+        mb = window_merge_bank(slab, bank, nd, vm, live, spec=self.spec)
+        return sbank.quantiles_impl(mb, qf, spec=self.spec)
+
+    def window_rollup(
+        self, slab: SketchBank, bank: SketchBank, nodes, valid, include_live, qs
+    ) -> torch.Tensor:
+        """Quantiles of every row over a slice range, shape ``(len(qs),)``:
+        the window's range merge, then ``rollup_quantiles``' collapse to the
+        max level, row sum and K = 1 query."""
+        qf = np.atleast_1d(np.asarray(qs, np.float32))
+        nd, vm, live = self._window_args(nodes, valid, include_live)
+        self._note(("window_rollup", slab.level.shape[0], nd.numel(), qf.size))
+        mb = window_merge_bank(slab, bank, nd, vm, live, spec=self.spec)
+        return self._rollup(mb, qf)

@@ -29,6 +29,7 @@ __all__ = [
     "build_all",
     "check",
     "count_launch",
+    "lane_ptr",
     "load",
     "nvcc_path",
     "reset_launches",
@@ -37,7 +38,15 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("ddsketch_ingest", "fold_pairs", "bank_quantiles")
+KERNELS = (
+    "ddsketch_ingest",
+    "fold_pairs",
+    "bank_quantiles",
+    "bank_range_merge",
+    "ddsketch_seg_hist",
+    "ddsketch_hist",
+    "ddsketch_scatter",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -152,3 +161,15 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def lane_ptr(t, dtype, what: str, n: int, device) -> int:
+    """Pointer of a contiguous ``(n,)`` lane tensor of ``dtype`` on
+    ``device``; raises on anything else."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, values on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if t.dim() != 1 or t.numel() != n or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous ({n},) tensor, got {tuple(t.shape)}")
+    return t.data_ptr()

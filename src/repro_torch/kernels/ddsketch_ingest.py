@@ -38,16 +38,6 @@ _SIGNATURES = {
 }
 
 
-def _lane_tensor(t: torch.Tensor, dtype: torch.dtype, what: str, n: int, device):
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, values on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
-    if t.dim() != 1 or t.numel() != n or not t.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous ({n},) tensor, got {tuple(t.shape)}")
-    return t.data_ptr()
-
-
 def ddsketch_ingest_cuda(
     values: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -68,10 +58,10 @@ def ddsketch_ingest_cuda(
     dev = values.device
     n = values.numel()
     k, m = int(num_segments), spec.num_buckets
-    vp = _lane_tensor(values, torch.float32, "values", n, dev)
-    sp = _lane_tensor(segment_ids, torch.int32, "segment_ids", n, dev)
-    wp = None if weights is None else _lane_tensor(weights, torch.float32, "weights", n, dev)
-    lp = None if levels is None else _lane_tensor(levels, torch.int32, "levels", n, dev)
+    vp = _build.lane_ptr(values, torch.float32, "values", n, dev)
+    sp = _build.lane_ptr(segment_ids, torch.int32, "segment_ids", n, dev)
+    wp = None if weights is None else _build.lane_ptr(weights, torch.float32, "weights", n, dev)
+    lp = None if levels is None else _build.lane_ptr(levels, torch.int32, "levels", n, dev)
     hist = torch.empty((2 * k, m), dtype=torch.float32, device=dev)
     sums = torch.empty((4, k), dtype=torch.float32, device=dev)
     vmin = torch.empty(k, dtype=torch.float32, device=dev)

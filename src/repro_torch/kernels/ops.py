@@ -1,11 +1,15 @@
-"""Front doors of the serving path's kernels: ``fused_ingest``,
-``fold_pairs`` and ``bank_quantiles``.
+"""Front doors of the port's kernels: ``fused_ingest``, ``fold_pairs``,
+``bank_quantiles``, ``bank_range_merge``, ``segment_histogram``,
+``ddsketch_histogram`` and ``ddsketch_scatter``, plus the insert-pipeline
+router ``bank_histograms`` and its rule ``insert_method``.
 
 The device of the tensors decides the implementation; there is no
 ``force=`` pin and no fallback.  A CUDA tensor always launches the
 hand-written kernel (``ddsketch_ingest_cuda``, ``fold_pairs_cuda``,
-``bank_quantiles_cuda``) and a failed build or launch raises; a CPU tensor
-takes the plain PyTorch version from ``ref``.  Each front door does the
+``bank_quantiles_cuda``, ``bank_range_merge_cuda``,
+``segment_histogram_cuda``, ``histogram_cuda``, ``scatter_cuda``) and a
+failed build or launch raises; a CPU tensor takes the plain PyTorch
+version from ``ref``.  Each front door does the
 JAX package's input glue (flatten, cast, default weights / levels) before
 handing contiguous tensors to the kernel wrapper.
 
@@ -21,25 +25,44 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bank_quantiles import bank_quantiles_cuda
+from repro_torch.kernels.bank_range_merge import bank_range_merge_cuda
+from repro_torch.kernels.ddsketch_hist import histogram_cuda
 from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda
+from repro_torch.kernels.ddsketch_scatter import scatter_cuda
+from repro_torch.kernels.ddsketch_seg_hist import segment_histogram_cuda
 from repro_torch.kernels.fold_pairs import fold_pairs_cuda
 from repro_torch.kernels.ref import (
+    MAX_COLLAPSE_LEVEL,
     BucketSpec,
     IngestStats,
     bank_quantiles_ref,
+    bank_range_merge_ref,
+    compact_triples,
+    f32,
     fold_pairs_ref,
     fused_ingest_ref,
+    histogram_ref,
+    scatter_histogram_ref,
+    segment_histogram_ref,
 )
 
 __all__ = [
     "BucketSpec",
     "IngestStats",
+    "bank_histograms",
     "bank_quantiles",
+    "bank_range_merge",
+    "ddsketch_histogram",
+    "ddsketch_scatter",
     "dispatch_stats",
     "fold_pairs",
     "fused_ingest",
+    "insert_method",
     "reset_dispatch_stats",
+    "segment_histogram",
 ]
+
+_METHOD_VALUES = (None, "matmul", "sort", "fused")
 
 
 def dispatch_stats() -> dict:
@@ -57,6 +80,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type != "cpu":
         raise ValueError(f"tensors must lie on a CUDA device or the CPU, got {t.device}")
     return False
+
+
+def _lanes(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    """A flat contiguous lane tensor of ``dtype`` (None stays None)."""
+    return None if t is None else t.reshape(-1).to(dtype).contiguous()
 
 
 def fused_ingest(
@@ -81,16 +109,17 @@ def fused_ingest(
             values, segment_ids, weights, levels, num_segments=k, spec=spec
         )
         return both[:k], both[k:], stats
-    x = values.reshape(-1).to(torch.float32).contiguous()
+    x = _lanes(values, torch.float32)
     if segment_ids is None:
         if k != 1:
             raise ValueError("segment_ids may be omitted only for a single-row bank")
         s = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     else:
-        s = segment_ids.reshape(-1).to(torch.int32).contiguous()
-    w = None if weights is None else weights.reshape(-1).to(torch.float32).contiguous()
-    lev = None if levels is None else levels.reshape(-1).to(torch.int32).contiguous()
-    both, stats = ddsketch_ingest_cuda(x, s, w, lev, num_segments=k, spec=spec)
+        s = _lanes(segment_ids, torch.int32)
+    both, stats = ddsketch_ingest_cuda(
+        x, s, _lanes(weights, torch.float32), _lanes(levels, torch.int32),
+        num_segments=k, spec=spec,
+    )
     return both[:k], both[k:], stats
 
 
@@ -166,3 +195,170 @@ def bank_quantiles(
         qf.contiguous(),
         table.to(torch.float32).contiguous(),
     )
+
+
+def bank_range_merge(
+    counts: torch.Tensor,
+    deltas: torch.Tensor,
+    *,
+    spec: BucketSpec,
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused slice-range merge: ``counts (D, R, m), deltas (D, R) -> (R, m)``.
+
+    Folds every slice row ``counts[d, r]`` by ``deltas[d, r]`` collapse
+    levels and sums the slice axis, so a whole window merge is one launch.
+    Deltas are clipped to ``[0, MAX_COLLAPSE_LEVEL]``; ``valid`` is an
+    optional ``(D,)`` 0/1 slice mask, and a dead slice gets the sentinel
+    delta -1, so it contributes nothing without its counts being zeroed.
+    Exact for integer-valued counts.
+    """
+    if not _on_cuda(counts):
+        return bank_range_merge_ref(counts, deltas, spec=spec, valid=valid)
+    d = torch.clamp(deltas.to(torch.int32), 0, MAX_COLLAPSE_LEVEL)
+    if valid is not None:
+        v = valid.to(device=counts.device, dtype=torch.float32).reshape(-1, 1)
+        d = torch.where(v > 0, d, -1)
+    return bank_range_merge_cuda(
+        counts.to(torch.float32).contiguous(), d.contiguous(), spec=spec
+    )
+
+
+def insert_method(n: int, full_ingest: bool = False) -> str:
+    """Pick ``"matmul"``, ``"sort"`` or ``"fused"`` for an insert of ``n``
+    values.
+
+    The JAX package's off-TPU size rule, kept so both packages make the
+    same choices: batches below 2^14 lanes take matmul (the two segment
+    histograms), larger ones the fused ingest when the caller wants the
+    stats too (``full_ingest``) and the sort pipeline otherwise.  The rule
+    was tuned on XLA CPU, not on the card.  ``method=`` pins the pipeline
+    at every entry point that reads this rule.
+    """
+    if n < (1 << 14):
+        return "matmul"
+    return "fused" if full_ingest else "sort"
+
+
+def ddsketch_histogram(
+    values: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    spec: BucketSpec,
+) -> torch.Tensor:
+    """Bucket counts ``(m,)`` of the positive finite entries of ``values``;
+    ``levels`` holds per-value collapse levels (None = level 0)."""
+    if not _on_cuda(values):
+        return histogram_ref(values, weights, levels, spec=spec)
+    return histogram_cuda(
+        _lanes(values, torch.float32),
+        _lanes(weights, torch.float32),
+        _lanes(levels, torch.int32),
+        spec=spec,
+    )
+
+
+def segment_histogram(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    num_segments: int,
+    spec: BucketSpec,
+) -> torch.Tensor:
+    """Per-segment bucket counts ``(num_segments, m)`` in one launch for
+    the whole bank; ``levels`` holds per-value collapse levels."""
+    if not _on_cuda(values):
+        return segment_histogram_ref(
+            values, segment_ids, weights, levels, num_segments=num_segments, spec=spec
+        )
+    return segment_histogram_cuda(
+        _lanes(values, torch.float32),
+        _lanes(segment_ids, torch.int32),
+        _lanes(weights, torch.float32),
+        _lanes(levels, torch.int32),
+        num_segments=num_segments,
+        spec=spec,
+    )
+
+
+def ddsketch_scatter(
+    keys: torch.Tensor, weights: torch.Tensor, *, num_rows: int, num_buckets: int
+) -> torch.Tensor:
+    """Accumulate composite-key triples into ``(num_rows, num_buckets)``;
+    keys outside ``[0, num_rows * num_buckets)`` contribute nothing.
+    Bit-exact for the unique keys ``compact_triples`` emits."""
+    if not _on_cuda(keys):
+        return scatter_histogram_ref(keys, weights, num_rows=num_rows, num_buckets=num_buckets)
+    return scatter_cuda(
+        _lanes(keys, torch.int32),
+        _lanes(weights, torch.float32),
+        num_rows=num_rows,
+        num_buckets=num_buckets,
+    )
+
+
+def bank_histograms(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    num_segments: int,
+    spec: BucketSpec,
+    method: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both sign stores of a bank insert: ``(pos, neg)``, each ``(K, m)``.
+
+    ``method`` picks the pipeline (None: ``insert_method``): ``"matmul"``
+    masks each sign and runs the segment histogram twice (the single-row
+    histogram when ``segment_ids`` is None, which needs ``num_segments ==
+    1``); ``"sort"`` runs the sort-reduce-scatter pipeline over one
+    composite-key stream into the stacked ``(2K, m)`` layout;
+    ``"fused"`` runs the fused ingest and drops its stats.
+
+    The sort pipeline is the same on both devices: ``compact_triples``
+    (plain torch) packs U <= min(N, 2Km + 1) unique triples to the front, a
+    static slice to that bound needs no sync, and ``ddsketch_scatter`` adds
+    them (the kernel on the card, ``scatter_histogram_ref`` on the CPU).
+    All pipelines give the same counts: bit for bit for integer weights;
+    fractional weights may differ in the last ulps where the order of
+    accumulation differs.
+    """
+    if method not in _METHOD_VALUES:
+        raise ValueError(f"method must be one of {_METHOD_VALUES}, got {method!r}")
+    if segment_ids is None and num_segments != 1:
+        raise ValueError(
+            "segment_ids may be omitted only for a single-row bank "
+            f"(num_segments=1), got num_segments={num_segments}"
+        )
+    k, m = int(num_segments), spec.num_buckets
+    n = values.numel()
+    if method is None:
+        method = insert_method(n)
+    if method == "fused":
+        pos, neg, _ = fused_ingest(
+            values, segment_ids, weights, levels, num_segments=k, spec=spec
+        )
+        return pos, neg
+    if method == "matmul":
+        x = values.reshape(-1).to(torch.float32)
+        mi = f32(spec.min_indexable)
+        pos_vals = torch.where(x > mi, x, -1.0)
+        neg_vals = torch.where(x < -mi, -x, -1.0)
+        if segment_ids is None:
+            pos = ddsketch_histogram(pos_vals, weights, levels, spec=spec)[None]
+            neg = ddsketch_histogram(neg_vals, weights, levels, spec=spec)[None]
+        else:
+            kw = dict(num_segments=k, spec=spec)
+            pos = segment_histogram(pos_vals, segment_ids, weights, levels, **kw)
+            neg = segment_histogram(neg_vals, segment_ids, weights, levels, **kw)
+        return pos, neg
+    keys, wts = compact_triples(
+        values, segment_ids, weights, levels, num_segments=k, spec=spec
+    )
+    cap = min(n, 2 * k * m + 1)
+    both = ddsketch_scatter(keys[:cap], wts[:cap], num_rows=2 * k, num_buckets=m)
+    return both[:k], both[k:]

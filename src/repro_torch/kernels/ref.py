@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the DDSketch bank kernels of the serving path.
 
-Torch twins of the JAX package's ``kernels/ref.py`` for the three kernels
-this package ports (fused ingest, pair fold, bank quantiles) plus the
-geometry they share.  They define the semantics the CUDA kernels in
+Torch twins of the JAX package's ``kernels/ref.py`` for the seven kernels
+this package ports (fused ingest, pair fold, bank quantiles, slice-range
+merge, segment histogram, single-row histogram, triple scatter), the sort
+pipeline's compaction front end and the geometry they share.  They define the semantics the CUDA kernels in
 ``repro_torch/csrc`` must match, run the CPU path (a wrapper takes them
 only for tensors that lie on the CPU), and are what ``chip_smoke.py``
 holds each kernel against on the card.
@@ -34,6 +35,13 @@ __all__ = [
     "bank_quantiles_ref",
     "fold_destination_range",
     "fold_pairs_ref",
+    "multi_fold_destinations",
+    "bank_range_merge_ref",
+    "histogram_ref",
+    "segment_histogram_ref",
+    "composite_keys",
+    "compact_triples",
+    "scatter_histogram_ref",
 ]
 
 # Hard ceiling on the uniform-collapse level (UDDSketch, Epicoco et al.
@@ -322,3 +330,227 @@ def fold_pairs_ref(counts: torch.Tensor, *, spec: BucketSpec) -> torch.Tensor:
     flat = counts.reshape(-1, m)
     out = torch.zeros_like(flat).index_add_(1, dst, flat)
     return out.reshape(counts.shape)
+
+
+# --------------------------------------------------------------------- #
+# fused slice-range merge: fold every slice row to its per-row target
+# level and reduce the slice axis (the window query)
+# --------------------------------------------------------------------- #
+def multi_fold_destinations(spec: BucketSpec, delta: int) -> np.ndarray:
+    """Static ``(m,)`` destination indices of a ``delta``-level fold.
+
+    ``shift_key`` nests (ceil(ceil(k/2)/2) == ceil(k/4)), so folding
+    ``delta`` levels at once sends bucket i (key ``offset + i``) straight to
+    ``ceil((offset + i) / 2**delta) - offset``, the same as iterating
+    ``fold_pairs_ref`` ``delta`` times.  Raises if a destination escapes
+    ``[0, m)``.
+    """
+    keys = np.arange(spec.num_buckets, dtype=np.int64) + spec.offset
+    dst = -((-keys) >> delta) - spec.offset  # ceil(k / 2**delta) - offset
+    if dst.min() < 0 or dst.max() > spec.num_buckets - 1:
+        raise ValueError(
+            f"multi-level fold (delta={delta}) destinations "
+            f"[{dst.min()}, {dst.max()}] escape [0, {spec.num_buckets - 1}] "
+            f"for offset={spec.offset}"
+        )
+    return dst.astype(np.int32)
+
+
+def bank_range_merge_ref(
+    counts: torch.Tensor,
+    deltas: torch.Tensor,
+    *,
+    spec: BucketSpec,
+    valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain fused range merge: ``counts (D, R, m), deltas (D, R) -> (R, m)``.
+
+    Row r of the output is the per-bucket sum of the D slice rows
+    ``counts[d, r]`` after folding each one ``deltas[d, r]`` collapse levels
+    (Algorithm 4 over the slice axis with the level reconciliation applied
+    per (slice, row)).  Deltas are clipped to ``[0, MAX_COLLAPSE_LEVEL]``;
+    ``valid`` is an optional ``(D,)`` 0/1 slice mask, and a dead slice
+    contributes nothing whatever its counts hold.
+
+    One formulation serves the reference's steady and reconciliation
+    branches alike: the slice rows are grouped by delta (a masked sum over
+    the slice axis per group), then each group is folded once with
+    ``index_add_`` into the ``multi_fold_destinations`` indices.  Exact for
+    integer-valued counts in any order, so it equals the reference and the
+    kernel bit for bit there; fractional counts differ in summation order.
+    """
+    fold_destination_range(spec)
+    if counts.dim() != 3 or counts.shape[2] != spec.num_buckets:
+        raise ValueError(f"counts must be (D, R, {spec.num_buckets}), got {tuple(counts.shape)}")
+    if tuple(deltas.shape) != tuple(counts.shape[:2]):
+        raise ValueError(f"deltas must be {tuple(counts.shape[:2])}, got {tuple(deltas.shape)}")
+    c = counts.to(torch.float32)
+    d = torch.clamp(deltas.to(torch.int32), 0, MAX_COLLAPSE_LEVEL)
+    if valid is not None:
+        v = valid.to(device=c.device, dtype=torch.float32).reshape(-1, 1)
+        d = torch.where(v > 0, d, -1)  # sentinel: matches no level
+    out = torch.zeros(c.shape[1:], dtype=torch.float32, device=c.device)
+    for delta in range(MAX_COLLAPSE_LEVEL + 1):
+        sel = d == delta  # (D, R)
+        grouped = torch.where(sel[:, :, None], c, 0.0).sum(0)
+        if delta == 0:
+            out += grouped
+        else:
+            dst = torch.from_numpy(multi_fold_destinations(spec, delta)).to(c.device)
+            out.index_add_(1, dst.to(torch.int64), grouped)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the matmul and sort insert pipelines
+# --------------------------------------------------------------------- #
+def histogram_ref(
+    values: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    spec: BucketSpec,
+) -> torch.Tensor:
+    """Plain single-sketch histogram: ``(m,)`` bucket counts of the positive
+    finite entries of ``values``, each keyed at its per-value collapse level
+    (``levels`` None = level 0).  Other entries contribute nothing."""
+    x = values.reshape(-1).to(torch.float32)
+    w = torch.ones_like(x) if weights is None else weights.reshape(-1).to(torch.float32)
+    lev = None if levels is None else levels.reshape(-1).to(torch.int32)
+    mask = torch.isfinite(x) & (x > f32(spec.min_indexable))
+    idx = bucket_index(torch.where(mask, x, 1.0), spec, lev)
+    out = torch.zeros(spec.num_buckets, dtype=torch.float32, device=x.device)
+    return out.index_add_(0, idx.to(torch.int64), torch.where(mask, w, 0.0))
+
+
+def segment_histogram_ref(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    num_segments: int,
+    spec: BucketSpec,
+) -> torch.Tensor:
+    """Plain per-segment histogram, ``(num_segments, m)``: row k is
+    ``histogram_ref(values[segment_ids == k])``.  Entries whose segment id
+    falls outside ``[0, num_segments)`` contribute nothing; ``levels`` are
+    per-value collapse levels."""
+    k, m = int(num_segments), spec.num_buckets
+    x = values.reshape(-1).to(torch.float32)
+    s = segment_ids.reshape(-1).to(torch.int32)
+    w = torch.ones_like(x) if weights is None else weights.reshape(-1).to(torch.float32)
+    lev = None if levels is None else levels.reshape(-1).to(torch.int32)
+    mask = torch.isfinite(x) & (x > f32(spec.min_indexable)) & (s >= 0) & (s < k)
+    idx = bucket_index(torch.where(mask, x, 1.0), spec, lev)
+    flat = torch.clamp(s, 0, max(k - 1, 0)).to(torch.int64) * m + idx
+    out = torch.zeros(k * m, dtype=torch.float32, device=x.device)
+    out.index_add_(0, flat, torch.where(mask, w, 0.0))
+    return out.view(k, m)
+
+
+def composite_keys(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor | None,
+    levels: torch.Tensor | None,
+    *,
+    num_segments: int,
+    spec: BucketSpec,
+) -> torch.Tensor:
+    """Flat int32 ``sign_base + seg * m + bucket`` keys covering both sign
+    stores of the combined ``(2K, m)`` layout.
+
+    Positives key into rows ``[0, K)``, negatives (keyed on ``|x|``) into
+    rows ``[K, 2K)``; lanes that contribute nothing (non-finite,
+    ``|x| <= min_indexable``, out-of-range segment id) get the sentinel
+    ``2*K*m``, which every consumer drops.  Raises when ``2*K*m + 1`` does
+    not fit int32.
+    """
+    k, m = int(num_segments), spec.num_buckets
+    sentinel = 2 * k * m
+    if sentinel + 1 > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"2 * num_segments * num_buckets + 1 = {sentinel + 1} overflows "
+            "int32 composite keys; shard the bank or shrink the geometry"
+        )
+    x = values.reshape(-1).to(torch.float32)
+    s = (
+        torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+        if segment_ids is None
+        else segment_ids.reshape(-1).to(torch.int32)
+    )
+    lev = None if levels is None else levels.reshape(-1).to(torch.int32)
+    mi = f32(spec.min_indexable)
+    finite = torch.isfinite(x)
+    is_pos = finite & (x > mi)
+    is_neg = finite & (x < -mi)
+    valid = (is_pos | is_neg) & (s >= 0) & (s < k)
+    idx = bucket_index(torch.where(valid, x.abs(), 1.0), spec, lev)
+    key = torch.clamp(s, 0, max(k - 1, 0)) * m + idx + torch.where(is_neg, k * m, 0)
+    return torch.where(valid, key, sentinel).to(torch.int32)
+
+
+def compact_triples(
+    values: torch.Tensor,
+    segment_ids: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    num_segments: int,
+    spec: BucketSpec,
+    payload_sort: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort + reduce: N lanes -> U <= min(N, 2*K*m + 1) unique triples.
+
+    Returns ``(keys, weights)`` of length N with the runs packed to the
+    front: lanes ``0..U-1`` hold each distinct composite key (see
+    ``composite_keys``) once, in ascending order, with the run's total
+    weight; the invalid lanes collapse into one sentinel run.  Trailing
+    lanes hold int32-max keys and weight 0.  Callers may slice the result
+    to ``min(N, 2*K*m + 1)`` lanes without reading U.
+
+    Plain torch on both devices (the reference runs it as XLA outside any
+    kernel): one ``torch.sort`` of the keys, run starts, a ``cumsum`` for
+    the run index, then a segmented sum and min.  The reference's two
+    formulations (keys with a lane-index permutation, or ``payload_sort``
+    moving the weights with the keys) are one here, because ``torch.sort``
+    returns the permutation; the flag is accepted for the reference's
+    signature.  The sort is unstable, so fractional weights on duplicate
+    keys may sum in another order (last-ulp differences); integer weights
+    are exact.
+    """
+    del payload_sort  # both formulations are the same sort here
+    key = composite_keys(values, segment_ids, levels, num_segments=num_segments, spec=spec)
+    n = key.numel()
+    if n == 0:
+        return key, torch.zeros(0, dtype=torch.float32, device=key.device)
+    sk, perm = torch.sort(key)
+    sw = (
+        torch.ones(n, dtype=torch.float32, device=key.device)
+        if weights is None
+        else weights.reshape(-1).to(torch.float32)[perm]
+    )
+    starts = torch.ones(n, dtype=torch.int32, device=key.device)
+    starts[1:] = (sk[1:] != sk[:-1]).to(torch.int32)
+    rid = (torch.cumsum(starts, 0) - 1).to(torch.int64)  # run index 0..U-1
+    run_w = torch.zeros(n, dtype=torch.float32, device=key.device).index_add_(0, rid, sw)
+    run_k = torch.full((n,), np.iinfo(np.int32).max, dtype=torch.int32, device=key.device)
+    run_k.scatter_reduce_(0, rid, sk, "amin")
+    return run_k, run_w
+
+
+def scatter_histogram_ref(
+    keys: torch.Tensor, weights: torch.Tensor, *, num_rows: int, num_buckets: int
+) -> torch.Tensor:
+    """Plain scatter stage: ``out[k // m, k % m] += w`` per triple, into
+    ``(num_rows, num_buckets)``.  Keys outside ``[0, num_rows * m)`` (the
+    compaction's sentinels) contribute nothing; duplicate keys accumulate.
+    With unique keys every bucket takes at most one add, so any correct
+    implementation matches this bit for bit."""
+    total = int(num_rows) * int(num_buckets)
+    k = keys.reshape(-1).to(torch.int64)
+    w = weights.reshape(-1).to(torch.float32)
+    valid = (k >= 0) & (k < total)
+    out = torch.zeros(total + 1, dtype=torch.float32, device=k.device)
+    out.index_add_(0, torch.where(valid, k, total), torch.where(valid, w, 0.0))
+    return out[:total].view(int(num_rows), int(num_buckets))

@@ -7,19 +7,25 @@ reachable over HTTP with nothing beyond the standard library:
   GET /healthz                             -> {"ok": true}
   GET /quantiles?endpoint=/v1/ep0&q=0.5,0.95,0.99
                                            -> rollup quantiles for one key
+  GET /quantiles?endpoint=/v1/ep0&window=5m
+      (or &slices=4)                       -> time-windowed quantiles over
+                                              the window's slice ring (one
+                                              range-merge launch);
+                                              unparseable durations or
+                                              windows wider than the ring
+                                              are a 400 JSON error
   GET /live?q=0.5,0.95,0.99                -> current-window quantiles for
                                               every live endpoint (one
                                               fused bank query)
   GET /rollup?q=0.5,0.95,0.99              -> the fleet view: quantiles of
                                               the union of every endpoint's
-                                              current window
+                                              current window; ``window=``
+                                              / ``slices=`` select the ring
+                                              window instead of the live
+                                              bank
   GET /report                              -> per-endpoint quantiles +
                                               effective alpha + collapse
                                               transition events
-
-``window=`` / ``slices=`` on ``/quantiles`` and ``/rollup`` answer 400,
-as they do on a window without a slice ring: the ring is not ported yet
-(``ROADMAP.md`` queue 1 item 7).
 
 ``serve_http`` duck-types: any object with those query methods works
 (``TelemetryFacade`` wraps a window + aggregator pair).
@@ -140,8 +146,20 @@ class TelemetryFacade:
             for ep in sorted(self.aggregator.keys())
         }
 
+    def windowed_quantiles(
+        self, endpoint: str, qs=_DEFAULT_QS, *, window=None, slices=None
+    ) -> list[float]:
+        """Ring-windowed quantiles for one key (one range-merge launch)."""
+        return self.window.windowed_quantiles(
+            endpoint, list(qs), window=window, slices=slices
+        )
+
+    def windowed_rollup(self, qs=_DEFAULT_QS, *, window=None, slices=None) -> list[float]:
+        """Ring-windowed fleet view (union of every key over the window)."""
+        return self.window.windowed_rollup(list(qs), window=window, slices=slices)
+
     def engine_stats(self) -> dict:
-        """Call-path and read-path counters for the /stats payload."""
+        """Call-path, ring and read-path counters for the /stats payload."""
         return self.window.engine_stats()
 
 
@@ -207,21 +225,29 @@ def _parse_qs_param(query: dict) -> list[float]:
     return qs
 
 
-def _refuse_window_params(query: dict, planner) -> None:
-    """Answer ``window=`` / ``slices=`` with ``ValueError`` (a 400 body).
+def _parse_window_params(query: dict) -> tuple[str | None, str | None]:
+    """Extract the optional ``window=`` / ``slices=`` pair (raw strings).
 
-    The telemetry tier's validator speaks first, so a window without a
-    slice ring answers with its own reason.
+    Mutual exclusion is checked here; parsing (duration suffixes, slice
+    counts, ring bounds) happens in the telemetry tier, so the HTTP layer
+    and in-process callers share one validator, whose ``ValueError`` maps
+    to a 400 JSON body like every other malformed parameter.
     """
     window = query.get("window", [None])[0]
     slices = query.get("slices", [None])[0]
-    if window is None and slices is None:
-        return
     if window is not None and slices is not None:
         raise ValueError("give either 'window' or 'slices', not both")
-    if planner is not None:
-        planner.resolve_window(window=window, slices=slices)
-    raise ValueError("windowed queries not supported by this telemetry source")
+    return window, slices
+
+
+def _nan_to_null(vals) -> list:
+    """JSON-safe quantile list: NaN (an empty window) becomes null, not the
+    non-standard ``NaN`` token strict parsers reject."""
+    out = []
+    for v in vals:
+        f = float(v)
+        out.append(None if math.isnan(f) else f)
+    return out
 
 
 def _make_handler(
@@ -381,7 +407,33 @@ def _make_handler(
                     if endpoint is None:
                         raise ValueError("missing required parameter 'endpoint'")
                     qs = _parse_qs_param(query)
-                    _refuse_window_params(query, planner)
+                    window, slices = _parse_window_params(query)
+                    if window is not None or slices is not None:
+                        payload = {
+                            "endpoint": endpoint,
+                            "qs": qs,
+                            "window": window,
+                            "slices": slices,
+                        }
+                        if planner is not None:
+                            w = planner.resolve_window(window=window, slices=slices)
+                            v, table, rows = planner.quantile_rows(qs, w)
+                            rid = rows.get(endpoint)
+                            if rid is None:
+                                raise KeyError(endpoint)
+                            payload["quantiles"] = _nan_to_null(table[rid])
+                            self._reply(200, payload, {"ETag": f'"{v}"'})
+                            return
+                        fn = getattr(telemetry, "windowed_quantiles", None)
+                        if fn is None:
+                            raise ValueError(
+                                "windowed queries not supported by this "
+                                "telemetry source"
+                            )
+                        vals = fn(endpoint, qs, window=window, slices=slices)
+                        payload["quantiles"] = _nan_to_null(vals)
+                        self._reply(200, payload)
+                        return
                     if planner is not None:
                         v, vals = planner.cached(
                             ("endpoint_quantiles", endpoint, tuple(qs)),
@@ -419,7 +471,25 @@ def _make_handler(
                     )
                 elif url.path == "/rollup":
                     qs = _parse_qs_param(query)
-                    _refuse_window_params(query, planner)
+                    window, slices = _parse_window_params(query)
+                    if window is not None or slices is not None:
+                        payload = {"qs": qs, "window": window, "slices": slices}
+                        if planner is not None:
+                            w = planner.resolve_window(window=window, slices=slices)
+                            v, vals = planner.rollup(qs, w)
+                            payload["quantiles"] = _nan_to_null(vals)
+                            self._reply(200, payload, {"ETag": f'"{v}"'})
+                            return
+                        wfn = getattr(telemetry, "windowed_rollup", None)
+                        if wfn is None:
+                            raise ValueError(
+                                "windowed queries not supported by this "
+                                "telemetry source"
+                            )
+                        vals = wfn(qs, window=window, slices=slices)
+                        payload["quantiles"] = _nan_to_null(vals)
+                        self._reply(200, payload)
+                        return
                     if planner is not None:
                         v, vals = planner.rollup(qs)
                         self._reply(

@@ -4,19 +4,20 @@ The write path coalesces (the ingest gateway folds every queued client
 batch into one engine ingest per tick).  This is its mirror for reads,
 between the HTTP handler pool and the ``KeyedWindow`` snapshot tier:
 
-* **coalescing** -- concurrent ``/live`` and ``/rollup`` requests landing
-  within a short tick fold into ONE fused ``bank_quantiles`` launch per
-  kind over the union of requested qs, and each request's answer is
+* **coalescing** -- concurrent ``/live``, ``/rollup`` and ``?window=``
+  requests landing within a short tick fold into ONE fused query per
+  (kind, window) group over the union of requested qs, and each request's
+  answer is
   scattered back out of the shared result table.  Sound because the fused
   query computes every q independently off the same per-row cumulative
   counts, so the union query is bit-exact against per-request queries on
   the same snapshot.  The first uncached request leads: it sleeps one
   ``coalesce_window_s`` to let concurrent pollers pile in, then runs
   groups until the pending list drains.
-* **versioned result cache** -- an LRU keyed on ``(kind, qs, version)``.
-  Sketch state changes only at ingest ticks and resets, and
-  ``KeyedWindow.version`` bumps at exactly those, so a hit at the live
-  version is current.  A version bump changes every key; stale entries
+* **versioned result cache** -- an LRU keyed on
+  ``(kind, window, qs, version)``.  Sketch state changes only at ingest
+  ticks, slice seals and resets, and ``KeyedWindow.version`` bumps at
+  exactly those, so a hit at the live version is current.  A version bump changes every key; stale entries
   age out of the LRU.
 * **ETag handoff** -- ``version`` doubles as the HTTP ``ETag``; the HTTP
   tier answers ``If-None-Match`` re-polls with 304 before any planner work.
@@ -89,6 +90,7 @@ class _Pending:
     """One in-flight read waiting on the coalescer."""
 
     kind: str  # "rows" -> (K, Q) table; "rollup" -> (Q,) values
+    wslices: int | None  # resolved slice count; None = live bank
     qs: tuple  # the request's quantile fractions
     event: threading.Event = field(default_factory=threading.Event)
     result: Any = None
@@ -141,25 +143,28 @@ class QueryPlanner:
     def etag(self) -> str:
         return f'"{self.window.version}"'
 
-    def resolve_window(self, window=None, slices=None) -> int:
-        """Raw HTTP ``window=`` / ``slices=`` params -> slice count;
-        ``ValueError`` (the 400 path) on bad input or a window without a
-        slice ring."""
+    def resolve_window(self, window=None, slices=None) -> int | None:
+        """Raw HTTP ``window=`` / ``slices=`` params -> slice count (None
+        when neither is given); ``ValueError`` (the 400 path) on bad input
+        or a window without a slice ring."""
+        if window is None and slices is None:
+            return None
         return int(self.window.resolve_window(window=window, slices=slices))
 
     # ------------------------------------------------------------------ #
     # the read shapes
     # ------------------------------------------------------------------ #
-    def quantile_rows(self, qs):
+    def quantile_rows(self, qs, wslices: int | None = None):
         """Per-row quantiles: ``(version, (K, len(qs)) table, key_to_row)``.
 
-        Backs ``/live``.  Coalesced and cached.
+        Backs ``/live`` (all rows) and keyed ``/quantiles?window=`` (the
+        caller indexes its row).  Coalesced and cached.
         """
-        return self._submit("rows", tuple(float(q) for q in qs))
+        return self._submit("rows", wslices, tuple(float(q) for q in qs))
 
-    def rollup(self, qs):
+    def rollup(self, qs, wslices: int | None = None):
         """Fleet-view quantiles: ``(version, [len(qs) floats])``."""
-        return self._submit("rollup", tuple(float(q) for q in qs))
+        return self._submit("rollup", wslices, tuple(float(q) for q in qs))
 
     def cached(self, key: tuple, compute: Callable[[], Any]):
         """Version-memoize an arbitrary host-tier read -> (version, value).
@@ -184,12 +189,12 @@ class QueryPlanner:
         with self._lock:
             self._stats[name] += n
 
-    def _submit(self, kind: str, qs: tuple):
+    def _submit(self, kind: str, wslices: int | None, qs: tuple):
         self._bump("requests")
-        hit = self.cache.get(((kind, qs), self.window.version))
+        hit = self.cache.get(((kind, wslices, qs), self.window.version))
         if hit is not None:
             return hit
-        req = _Pending(kind, qs)
+        req = _Pending(kind, wslices, qs)
         with self._lock:
             self._pending.append(req)
             lead = not self._leading
@@ -238,18 +243,26 @@ class QueryPlanner:
         """One coalescer round: group -> one fused query per group ->
         scatter per-request answers -> fill the cache -> wake waiters."""
         snap = self.window.snapshot()
-        groups: dict[str, list[_Pending]] = {}
+        groups: dict[tuple, list[_Pending]] = {}
         for r in batch:
-            groups.setdefault(r.kind, []).append(r)
+            groups.setdefault((r.kind, r.wslices), []).append(r)
         self._bump("dispatches", len(groups))
-        for kind, reqs in groups.items():
+        for (kind, w), reqs in groups.items():
             union = sorted({q for r in reqs for q in r.qs})
             padded = union + [union[-1]] * (next_pow2(len(union), 1) - len(union))
             try:
                 if kind == "rows":
-                    table = snap.row_quantiles(padded)
+                    table = (
+                        snap.row_quantiles(padded)
+                        if w is None
+                        else snap.windowed_row_quantiles(padded, slices=w)
+                    )
                 else:
-                    vals = snap.rollup_quantiles(padded)
+                    vals = (
+                        snap.rollup_quantiles(padded)
+                        if w is None
+                        else snap.windowed_rollup(padded, slices=w)
+                    )
             except BaseException as e:
                 for r in reqs:
                     r.error = e
@@ -264,7 +277,7 @@ class QueryPlanner:
                     r.result = (snap.version, [vals[i] for i in idx])
                 # fill under the executed snapshot's version: if the writer
                 # bumped mid-round the entry is simply never hit
-                self.cache.put(((r.kind, r.qs), snap.version), r.result)
+                self.cache.put(((r.kind, w, r.qs), snap.version), r.result)
                 r.event.set()
 
     # ------------------------------------------------------------------ #

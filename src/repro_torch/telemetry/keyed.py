@@ -20,9 +20,12 @@ Resolution adapts per row (UDDSketch uniform collapse): after each
 ``collapse_threshold``, and the per-row levels survive window resets.
 Every transition is recorded as a ``CollapseEvent``.
 
-The sliding-window ring (``num_slices`` / ``slice_seconds``) and row
-sharding (``num_shards > 1``) are not ported yet (``ROADMAP.md`` queue 1
-items 7 and 10).
+With ``num_slices`` the window keeps a sliding-window ring
+(``engine.WindowRing``): ``advance_slice`` seals the live bank as the next
+time slice and recycles it in place, and ``windowed_*`` answer quantiles
+over the last N slices (``slices=``) or a duration (``window=`` over
+``slice_seconds``).  Row sharding (``num_shards > 1``) is not ported yet
+(``ROADMAP.md`` queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import sketch_bank as sbank
+from repro_torch.core.sketch_bank import SketchBank
 from repro_torch.core.ddsketch import DDSketch
 from repro_torch.core.torch_sketch import effective_alpha
-from repro_torch.engine import make_engine
+from repro_torch.engine import WindowRing, make_engine
 from repro_torch.kernels.ref import BucketSpec
 
 __all__ = [
@@ -113,30 +117,57 @@ class CollapseEvent(NamedTuple):
 class BankSnapshot:
     """An immutable, version-stamped read view of a ``KeyedWindow``.
 
-    Holds a copy of the bank in fresh tensors (``SketchEngine.snapshot``),
-    which later in-place ingest and reset never touch, plus a copy of the
-    key -> row map taken at the same instant.  Queries here take no lock.
+    Holds a copy of the bank (and of the ring slab, when the window has
+    one) in fresh tensors (``SketchEngine.snapshot``), which later in-place
+    ingest, seal and reset never touch, plus a copy of the key -> row map
+    taken at the same instant.  Queries here take no lock.
 
     The copies are enqueued on the current stream, the stream the in-place
-    ingest runs on, so they see the bank as of the snapshot.  If ingest
+    ingest runs on, so they see the state as of the snapshot.  If ingest
     ever moves to a side stream, the snapshot needs an event between the
     two.  ``version`` stamps the window state the view reflects (one bump
-    per ingest tick or reset), so it doubles as the result-cache key and
-    the HTTP ``ETag``.
+    per ingest tick, slice seal or reset), so it doubles as the
+    result-cache key and the HTTP ``ETag``.
     """
 
-    __slots__ = ("version", "spec", "engine", "bank", "key_to_row")
+    __slots__ = (
+        "version",
+        "spec",
+        "engine",
+        "bank",
+        "key_to_row",
+        "ring",
+        "sealed",
+        "slab",
+        "window",
+    )
 
-    def __init__(self, *, version, window, bank, key_to_row):
+    def __init__(self, *, version, window, bank, key_to_row, sealed, slab):
         self.version = version
+        self.window = window
         self.spec = window.spec
         self.engine = window.engine
         self.bank = bank
         self.key_to_row = key_to_row
+        self.ring = window.ring
+        self.sealed = sealed  # ring seal count at capture (None: no ring)
+        self.slab = slab  # slab copy at ``sealed`` (shared between snaps)
 
     def row_quantiles(self, qs) -> np.ndarray:
         """Raw per-row quantiles ``(K, len(qs))``, the coalescer's unit."""
         return self.engine.host_rows(self.engine.quantiles(self.bank, qs))
+
+    def windowed_row_quantiles(self, qs, *, window=None, slices=None) -> np.ndarray:
+        """Raw per-row windowed quantiles ``(K, len(qs))``.
+
+        The node cover comes from ``query_args_at`` at the captured seal
+        count: layout math, valid however far the live ring has advanced.
+        """
+        w = self.window.resolve_window(window=window, slices=slices)
+        nodes, valid = self.ring.query_args_at(self.sealed, w)
+        return self.engine.host_rows(
+            self.engine.window_query(self.slab, self.bank, nodes, valid, True, qs)
+        )
 
     def quantiles(self, key: str, qs) -> list[float]:
         rid = self.key_to_row.get(key)
@@ -156,6 +187,29 @@ class BankSnapshot:
         out = self.engine.host_rows(self.engine.rollup_quantiles(self.bank, qs))
         return [float(v) for v in out]
 
+    def windowed_quantiles(self, key: str, qs, *, window=None, slices=None):
+        rid = self.key_to_row.get(key)
+        if rid is None:
+            raise KeyError(f"no values recorded for key {key!r}")
+        out = self.windowed_row_quantiles(qs, window=window, slices=slices)
+        return [float(v) for v in out[rid]]
+
+    def windowed_all_quantiles(self, qs, *, window=None, slices=None):
+        out = self.windowed_row_quantiles(qs, window=window, slices=slices)
+        return {
+            k: [float(v) for v in out[rid]]
+            for k, rid in self.key_to_row.items()
+            if k != OVERFLOW_KEY
+        }
+
+    def windowed_rollup(self, qs, *, window=None, slices=None) -> list[float]:
+        w = self.window.resolve_window(window=window, slices=slices)
+        nodes, valid = self.ring.query_args_at(self.sealed, w)
+        out = self.engine.host_rows(
+            self.engine.window_rollup(self.slab, self.bank, nodes, valid, True, qs)
+        )
+        return [float(v) for v in out]
+
     def total_mass(self) -> float:
         return float(np.sum(self.engine.host_rows(self.bank.counts)))
 
@@ -171,8 +225,12 @@ class KeyedWindow:
     ``OVERFLOW_KEY``.  ``collapse_threshold`` (float mass; None disables)
     controls the post-record collapse: the default 0.0 folds a row as soon
     as any mass clamps.  ``evict_after`` is the idle-window count at which
-    a key's row is reclaimed.  ``device`` defaults to the card and raises
-    when there is none.
+    a key's row is reclaimed.  ``num_slices`` (a power of two) adds a
+    sliding-window ring of that many sealed slices, ``slice_seconds`` the
+    slice length that ``window=`` durations divide by.  ``method`` pins
+    the insert pipeline (``"matmul"`` / ``"sort"``; None the fused
+    kernel).  ``device`` defaults to the card and raises when there is
+    none.
 
     Thread safety: every bank mutation goes through ``self.lock`` (an
     RLock).  Readers run against the version-stamped ``BankSnapshot``
@@ -180,8 +238,6 @@ class KeyedWindow:
     the version moved.  ``KeyedAggregator.flush`` holds the lock across its
     read-then-reset.
     """
-
-    ring = None  # no slice ring in this port yet (ROADMAP.md queue 1 item 7)
 
     def __init__(
         self,
@@ -203,11 +259,6 @@ class KeyedWindow:
             raise ValueError("capacity must be >= 1")
         if evict_after < 1:
             raise ValueError("evict_after must be >= 1")
-        if num_slices is not None or slice_seconds is not None:
-            raise NotImplementedError(
-                "sliding windows (num_slices / slice_seconds) are not ported "
-                "yet (ROADMAP.md queue 1 item 7)"
-            )
         self.spec = spec
         self.capacity = capacity
         # reentrant: KeyedAggregator.flush holds it while calling reset()
@@ -237,11 +288,17 @@ class KeyedWindow:
         # host mirror of per-row levels: reactive folds bump exactly one
         # level per fire, so events never need an extra device read
         self._levels = np.zeros(self.engine.num_sketches, np.int64)
+        # optional sliding-window ring: the live bank is the head slice,
+        # advance_slice() seals it and recycles the bank in place
+        self.ring = None if num_slices is None else WindowRing(self.engine, num_slices)
+        self.slice_seconds = None if slice_seconds is None else float(slice_seconds)
         # read path: monotone state version (one bump per ingest tick /
-        # reset) + the published snapshot readers run against
+        # slice seal / reset) + the published snapshot readers run against
         self._version = 0
         self._snap: BankSnapshot | None = None
+        self._slab_snap: tuple[int, SketchBank] | None = None  # (sealed, copy)
         self._snap_builds = 0
+        self._slab_builds = 0
 
     # ------------------------------------------------------------------ #
     def row_id(self, key: str) -> int:
@@ -378,11 +435,25 @@ class KeyedWindow:
         snap = self._snap
         if snap is not None and snap.version == self._version:
             return snap
+        slab = sealed = None
+        if self.ring is not None:
+            sealed = self.ring.sealed
+            cached = self._slab_snap
+            if cached is None or cached[0] != sealed:
+                # the slab changes only on seal, so one copy per seal count
+                # serves every bank snapshot taken in between; a copy, never
+                # the live slab, which seal_slice / merge_node write in place
+                cached = (sealed, self.engine.snapshot(self.ring.slab))
+                self._slab_builds += 1
+                self._slab_snap = cached
+            slab = cached[1]
         snap = BankSnapshot(
             version=self._version,
             window=self,
             bank=self.engine.snapshot(self.bank),
             key_to_row=dict(self.key_to_row),
+            sealed=sealed,
+            slab=slab,
         )
         self._snap_builds += 1
         self._snap = snap
@@ -407,14 +478,6 @@ class KeyedWindow:
             with self.lock:
                 self._publish_locked()
         return self._version
-
-    def resolve_window(self, window=None, slices=None) -> int:
-        """``?window=`` / ``?slices=``: a window without a slice ring answers
-        ``ValueError`` (the HTTP 400 contract)."""
-        raise ValueError(
-            "windowed queries need a slice ring, and KeyedWindow(num_slices=) "
-            "is not ported yet (ROADMAP.md queue 1 item 7)"
-        )
 
     # ------------------------------------------------------------------ #
     def quantiles(self, key: str, qs) -> list[float]:
@@ -453,17 +516,108 @@ class KeyedWindow:
             self._events.clear()
         return out
 
-    def engine_stats(self) -> dict:
-        """Call-path and read-path counters for ``/stats``."""
+    # ------------------------------------------------------------------ #
+    # sliding-window ring (windows over time slices, with num_slices=)
+    # ------------------------------------------------------------------ #
+    def _require_ring(self) -> WindowRing:
+        if self.ring is None:
+            raise ValueError(
+                "windowed queries need a slice ring: construct the "
+                "KeyedWindow with num_slices="
+            )
+        return self.ring
+
+    def advance_slice(self) -> int:
+        """Seal the live slice into the ring and recycle the bank in place.
+
+        The window-advance tick (the ingest gateway calls it on its slice
+        clock): the live bank is copied into the ring's head slot, then
+        reset in place with ``levels=None``, so per-key collapse levels
+        survive slice turnover.  Returns the number of merge-tree node
+        rebuilds the seal triggered.
+        """
+        ring = self._require_ring()
         with self.lock:
-            return {
+            self._window += 1
+            self._materialize_events()
+            merges = ring.seal(self.bank)
+            self.bank = self.engine.reset(self.bank)
+            self._version += 1
+        return merges
+
+    def resolve_window(self, window=None, slices=None) -> int:
+        """``?window=5m`` / ``?slices=8`` -> a validated slice count.
+
+        Exactly one of the two must be given.  Durations round up to whole
+        slices (a 5m window over 60 s slices covers 5 slices, the live head
+        included) and need ``slice_seconds``; raises ``ValueError`` (the
+        HTTP 400 contract) on unparseable input or windows wider than the
+        ring.
+        """
+        ring = self._require_ring()
+        if (window is None) == (slices is None):
+            raise ValueError("pass exactly one of window= or slices=")
+        if slices is not None:
+            try:
+                w = int(str(slices))
+            except ValueError:
+                raise ValueError(f"slices must be an integer, got {slices!r}") from None
+        else:
+            secs = parse_duration(window)
+            if self.slice_seconds is None:
+                raise ValueError(
+                    "duration windows need slice_seconds configured; use slices= instead"
+                )
+            w = max(1, int(np.ceil(secs / self.slice_seconds)))
+        if w < 1:
+            raise ValueError(f"window must cover at least 1 slice, got {w}")
+        if w > ring.num_slices:
+            raise ValueError(
+                f"window of {w} slices exceeds the ring ({ring.num_slices} slices retained)"
+            )
+        return w
+
+    def windowed_quantiles(self, key: str, qs, *, window=None, slices=None) -> list[float]:
+        """Per-key quantiles over the last N slices (live slice included):
+        the ring's O(log S) cached nodes and one range-merge launch, off
+        the published snapshot (lock-free against seals and ingest)."""
+        self._require_ring()
+        return self.snapshot().windowed_quantiles(key, qs, window=window, slices=slices)
+
+    def windowed_all_quantiles(
+        self, qs, *, window=None, slices=None
+    ) -> dict[str, list[float]]:
+        """Windowed quantiles for every live key (one range-merge launch)."""
+        self._require_ring()
+        return self.snapshot().windowed_all_quantiles(qs, window=window, slices=slices)
+
+    def windowed_rollup(self, qs, *, window=None, slices=None) -> list[float]:
+        """Fleet-view quantiles over the last N slices ("p99 across all
+        keys, last 5 minutes")."""
+        self._require_ring()
+        return self.snapshot().windowed_rollup(qs, window=window, slices=slices)
+
+    def ring_stats(self) -> dict | None:
+        """Ring occupancy / maintenance metadata (None when no ring)."""
+        if self.ring is None:
+            return None
+        with self.lock:
+            return self.ring.stats()
+
+    def engine_stats(self) -> dict:
+        """Call-path, ring and read-path counters for ``/stats``."""
+        with self.lock:
+            out = {
                 "executable_cache": self.engine.cache_info(),
                 "read_path": {
                     "version": self._version,
                     "snapshot_builds": self._snap_builds,
-                    "slab_snapshot_builds": 0,
+                    "slab_snapshot_builds": self._slab_builds,
                 },
             }
+            if self.ring is not None:
+                out["ring"] = self.ring.stats()
+        return out
 
     def reset(self) -> None:
         """Start the next window: zero the bank in place.

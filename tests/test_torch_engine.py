@@ -209,8 +209,10 @@ def test_unported_options_raise_and_default_device_is_the_card(monkeypatch):
     ts = TSpec(num_buckets=M, offset=-256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_engine(ts, 8, num_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(ts, 8, method="matmul", device="cpu")
+    for method in ("matmul", "sort"):  # ported: the pinned insert pipelines
+        assert TEngine(ts, 8, method=method, device="cpu").method == method
+    with pytest.raises(ValueError, match="method"):
+        TEngine(ts, 8, method="scan", device="cpu")
     assert make_engine(ts, 8, num_shards=1, device="cpu").device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -115,8 +115,17 @@ def test_dispatch_stats_count_launches_only():
     tops.reset_dispatch_stats()
     ts = TSpec(num_buckets=512, offset=-256)
     tops.fold_pairs(torch.zeros(2, 512), spec=ts)  # CPU: the plain version
+    tops.bank_range_merge(torch.zeros(2, 2, 512), torch.zeros(2, 2, dtype=torch.int32), spec=ts)
+    tops.segment_histogram(torch.ones(4), torch.zeros(4, dtype=torch.int32), num_segments=1,
+                           spec=ts)
+    tops.ddsketch_histogram(torch.ones(4), spec=ts)
+    tops.ddsketch_scatter(torch.zeros(4, dtype=torch.int32), torch.ones(4), num_rows=1,
+                          num_buckets=512)
     stats = tops.dispatch_stats()
-    assert stats == {"launches": {"ddsketch_ingest": 0, "fold_pairs": 0, "bank_quantiles": 0}}
+    assert stats == {"launches": {
+        "ddsketch_ingest": 0, "fold_pairs": 0, "bank_quantiles": 0, "bank_range_merge": 0,
+        "ddsketch_seg_hist": 0, "ddsketch_hist": 0, "ddsketch_scatter": 0,
+    }}
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():
@@ -124,6 +133,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         "import sys\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ddsketch_ingest\n"
         "import repro_torch.kernels.fold_pairs, repro_torch.kernels.bank_quantiles\n"
+        "import repro_torch.kernels.bank_range_merge, repro_torch.kernels.ddsketch_seg_hist\n"
+        "import repro_torch.kernels.ddsketch_hist, repro_torch.kernels.ddsketch_scatter\n"
         "from repro_torch.kernels import _build\n"
         "assert 'triton' not in sys.modules\n"
         "assert not _build._libs, 'a kernel was built at import'\n"
@@ -149,6 +160,20 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         bank_quantiles_cuda(c, c, torch.zeros(2), x[:2], x[:2], torch.zeros(2, dtype=torch.int32),
                             x[:1], torch.zeros(7, 512))
+    from repro_torch.kernels.bank_range_merge import bank_range_merge_cuda
+    from repro_torch.kernels.ddsketch_hist import histogram_cuda
+    from repro_torch.kernels.ddsketch_scatter import scatter_cuda
+    from repro_torch.kernels.ddsketch_seg_hist import segment_histogram_cuda
+
+    with pytest.raises(ValueError):
+        bank_range_merge_cuda(torch.zeros(2, 2, 512), torch.zeros(2, 2, dtype=torch.int32),
+                              spec=ts)
+    with pytest.raises(ValueError):
+        segment_histogram_cuda(x, x.int(), None, None, num_segments=1, spec=ts)
+    with pytest.raises(ValueError):
+        histogram_cuda(x, None, None, spec=ts)
+    with pytest.raises(ValueError):
+        scatter_cuda(x.int(), x, num_rows=1, num_buckets=512)
 
 
 @pytest.mark.gpu
@@ -174,4 +199,39 @@ def test_cuda_kernels_match_plain_versions(rng):
     got = tops.bank_quantiles(p, q, sp.zero, sp.vmin, sp.vmax, lv, qs, spec=ts, table=table)
     want = tref.bank_quantiles_ref(p, q, sp.zero, sp.vmin, sp.vmax, lv, qs, table)
     assert bool(((got == want) | (got.isnan() & want.isnan())).all())
-    assert all(v > 0 for v in tops.dispatch_stats()["launches"].values())
+    launches = tops.dispatch_stats()["launches"]
+    assert all(launches[name] > 0 for name in ("ddsketch_ingest", "fold_pairs", "bank_quantiles"))
+
+
+@pytest.mark.gpu
+def test_cuda_window_and_insert_kernels_match_plain_versions(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    dev = torch.device("cuda")
+    ts = TSpec()
+    k, n = 64, 1 << 16
+    tops.reset_dispatch_stats()
+    counts = torch.from_numpy(rng.integers(0, 100, (5, 2 * k, ts.num_buckets))
+                              .astype(np.float32)).to(dev)
+    deltas = torch.from_numpy(rng.integers(0, 7, (5, 2 * k)).astype(np.int32)).to(dev)
+    valid = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0], device=dev)
+    got = tops.bank_range_merge(counts, deltas, spec=ts, valid=valid)
+    assert torch.equal(got, tref.bank_range_merge_ref(counts, deltas, spec=ts, valid=valid))
+    x, s, lev = _lanes(rng, n, k)
+    xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
+    w = torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(dev)
+    got = tops.segment_histogram(xt, st_, w, lt, num_segments=k, spec=ts)
+    assert torch.equal(got, tref.segment_histogram_ref(xt, st_, w, lt, num_segments=k, spec=ts))
+    got = tops.ddsketch_histogram(xt, w, lt, spec=ts)
+    assert torch.equal(got, tref.histogram_ref(xt, w, lt, spec=ts))
+    keys, wts = tref.compact_triples(xt, st_, w, lt, num_segments=k, spec=ts)
+    got = tops.ddsketch_scatter(keys, wts, num_rows=2 * k, num_buckets=ts.num_buckets)
+    want = tref.scatter_histogram_ref(keys, wts, num_rows=2 * k, num_buckets=ts.num_buckets)
+    assert torch.equal(got, want)
+    for method in ("matmul", "sort"):
+        got = tops.bank_histograms(xt, st_, w, lt, num_segments=k, spec=ts, method=method)
+        want = tops.bank_histograms(xt, st_, w, lt, num_segments=k, spec=ts, method="fused")
+        assert all(torch.equal(g, f) for g, f in zip(got, want))
+    launches = tops.dispatch_stats()["launches"]
+    for name in ("bank_range_merge", "ddsketch_seg_hist", "ddsketch_hist", "ddsketch_scatter"):
+        assert launches[name] > 0, name

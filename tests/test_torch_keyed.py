@@ -141,7 +141,9 @@ def test_parse_duration_matches_jax():
 def test_unported_window_options_raise():
     ts = TSpec(num_buckets=512, offset=-256)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.KeyedWindow(ts, 4, num_slices=8, device="cpu")
+        tk.KeyedWindow(ts, 4, num_shards=2, device="cpu")
+    ringed = tk.KeyedWindow(ts, 4, num_slices=8, slice_seconds=60.0, device="cpu")
+    assert ringed.ring.num_slices == 8 and ringed.resolve_window(window="5m") == 5
     w = tk.KeyedWindow(ts, 4, device="cpu")
     assert w.ring is None
     with pytest.raises(ValueError, match="slice ring"):

@@ -194,10 +194,15 @@ def test_from_numpy_round_trip_and_refusals(rng):
 
 
 def test_unported_insert_pipelines_raise():
+    """The matmul and sort pipelines are ported: each gives the fused
+    pipeline's bank on the same lanes; an unknown method still raises."""
     ts = TSpec(num_buckets=M, offset=-256)
-    bank = tsb.empty(ts, 2, device="cpu")
-    x = torch.ones(4)
-    s = torch.zeros(4, dtype=torch.int32)
+    x = torch.tensor([1.0, -2.0, 0.0, float("nan"), 1e15])
+    s = torch.tensor([0, 1, 1, 0, 0], dtype=torch.int32)
+    want = tsb.add_impl(tsb.empty(ts, 2, device="cpu"), x, s, spec=ts, method="fused")
     for method in ("matmul", "sort"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsb.add_impl(bank, x, s, spec=ts, method=method)
+        got = tsb.add_impl(tsb.empty(ts, 2, device="cpu"), x, s, spec=ts, method=method)
+        for g, w in zip(tsb.to_numpy(got), tsb.to_numpy(want)):
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="method"):
+        tsb.add_impl(tsb.empty(ts, 2, device="cpu"), x, s, spec=ts, method="scan")
