@@ -11,13 +11,18 @@ script builds the port's seven CUDA kernels from ``src/repro_torch/csrc``
    path's shapes: the serving shapes (K = 4096 rows, m = 2048 buckets,
    ticks of 2^20 lanes, Q = 8) over the three mappings, levels 0-6 and
    weights none / integer / fractional, with NaN, +-inf, +-0, out-of-range
-   ids and padding lanes; the range merge at D + 1 = 13 slices of 2K = 8192
-   rows with deltas 0-6 and two dead slices; the scatter on the compacted
-   triples of 2^20 lanes, and on duplicate keys;
+   ids and padding lanes, in its delta form and in place into a non-empty
+   bank; the range merge at D + 1 = 13 slices of 2K = 8192 rows with deltas
+   0-6 and two dead slices, stacked and read by node index out of a
+   float32 and an int32 slab with the live gate on and off; the scatter on
+   the compacted triples of 2^20 lanes, and on duplicate keys;
 4. times each kernel, its plain version and the one PyTorch call that
-   computes the same function where there is one, with CUDA events, and
-   states each kernel's bound from the bytes it must move (before the
-   paths below, whose serving tick runs under ``torch.profiler``);
+   computes the same function where there is one, with CUDA events around
+   single calls on a card kept busy by an L2-evicting fill, and states each
+   kernel's bound from the bytes it must move; the in-place ingest and the
+   node-indexed range merge are timed beside the compositions they
+   replaced (before the paths below, whose serving tick runs under
+   ``torch.profiler``);
 3. drives each path of the port once at full width through the entry
    points a user calls, with the kernel launch counters zeroed just before
    and read just after; every kernel of the path must have launched:
@@ -34,7 +39,9 @@ script builds the port's seven CUDA kernels from ``src/repro_torch/csrc``
       ``/quantiles?slices=1``, malformed windows (400) and a second gateway
       whose slice clock seals on its own; the final snapshot's windowed
       tables held bit for bit against a sequential merge fold of the
-      covered nodes, and one windowed query and rollup profiled;
+      covered nodes, and one windowed query and rollup profiled, each
+      allocating far less than the (D + 1, 2K, m) block the merge once
+      gathered;
    c. insert pipelines: ``add_impl(method="matmul" | "sort")`` on a K = 4096
       bank with 2^20 lanes, and a ``DeviceSketch`` taking 2^20 and 4096
       values (the auto rule picks sort, then matmul);
@@ -194,6 +201,70 @@ def check_ingest(torch, ops, ref, BucketSpec, rng) -> dict:
     return out
 
 
+def check_ingest_into(torch, ops, ref, BucketSpec, rng) -> dict:
+    """The in-place ingest into a non-empty bank against the plain delta
+    followed by the adds (``add_impl``'s composition before the in-place
+    kernel): histograms and counters bit-exact for integer weights, ``summ``
+    within 2 (n + 1) u (sum|w x| + |summ0|) per row, extrema numerically
+    equal; fractional weights within 2 (c + 1) u of each bucket."""
+    dev = torch.device(DEVICE)
+    n, out = TICK_LANES, {"max_abs_err": 0.0, "log_moved_lanes": 0.0}
+    for mapping in ("log", "linear", "cubic"):
+        spec = BucketSpec(mapping=mapping)
+        x, s, lev, pad = ingest_lanes(rng, n, K)
+        wint = rng.integers(0, 4, n).astype(np.float32)
+        wfrac = rng.random(n).astype(np.float32)
+        wint[-pad:] = 0.0
+        wfrac[-pad:] = 0.0
+        xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
+        # a bank that has been ingesting for a while
+        bank0 = [torch.from_numpy(a).to(dev) for a in (
+            rng.integers(0, 50, (K, M)).astype(np.float32),
+            rng.integers(0, 5, (K, M)).astype(np.float32),
+            *(rng.integers(0, 20, K).astype(np.float32) for _ in range(3)),
+            rng.normal(0.0, 100.0, K).astype(np.float32),
+            np.where(rng.random(K) < 0.5, 1.5, -3.0).astype(np.float32),
+            np.where(rng.random(K) < 0.5, 2.5, 1e6).astype(np.float32),
+        )]
+        cnt = None
+        for wkind, w in (("none", None), ("int", wint), ("frac", wfrac)):
+            wt = None if w is None else torch.from_numpy(w).to(dev)
+            got = [t.clone() for t in bank0]
+            ops.fused_ingest_into(got[0], got[1], ops.IngestStats(*got[2:]), xt, st_, wt, lt,
+                                  spec=spec)
+            hp, sp = ref.fused_ingest_ref(xt, st_, wt, lt, num_segments=K, spec=spec)
+            if wkind == "none":
+                cnt = [hp[:K], hp[K:], sp.zero, sp.overflow, sp.underflow]  # lanes per cell
+            want = [bank0[0] + hp[:K], bank0[1] + hp[K:],
+                    *(b + d for b, d in zip(bank0[2:6], sp[:4])),
+                    torch.minimum(bank0[6], sp.vmin), torch.maximum(bank0[7], sp.vmax)]
+            valid = torch.isfinite(xt) & (st_ >= 0) & (st_ < K)
+            rows = st_.clamp(0, K - 1).long()[valid]
+            wv = torch.ones_like(xt) if wt is None else wt
+            absum = torch.zeros(K, device=dev).index_add_(0, rows, (wv * xt).abs()[valid])
+            nrow = torch.zeros(K, device=dev).index_add_(0, rows, torch.ones_like(xt)[valid])
+            check(bool(((got[5] - want[5]).abs()
+                        <= 2 * (nrow + 1) * U * (absum + bank0[5].abs())).all()),
+                  f"ingest_into {mapping}/{wkind}: summ beyond 2 (n + 1) u sum|wx|")
+            check(bool((got[6] == want[6]).all()), f"ingest_into {mapping}/{wkind}: vmin")
+            check(bool((got[7] == want[7]).all()), f"ingest_into {mapping}/{wkind}: vmax")
+            for j in range(5):
+                diff = (got[j] - want[j]).abs()
+                if wkind == "frac":
+                    check(bool((diff <= 2 * (cnt[j] + 1) * U * want[j].abs()).all()),
+                          f"ingest_into {mapping}/frac: a cell beyond 2 (c + 1) u")
+                elif mapping == "log" and j < 2:
+                    # two logf builds may move a boundary lane one bucket
+                    moved = float(diff.sum()) / 2
+                    out["log_moved_lanes"] = max(out["log_moved_lanes"], moved)
+                    check(moved <= 1e-5 * n * 3, f"ingest_into log: {moved} lanes moved")
+                else:
+                    err = float(diff.max())
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    check(err == 0.0, f"ingest_into {mapping}/{wkind}: not bit-exact ({err})")
+    return out
+
+
 def check_fold(torch, ops, ref, BucketSpec, rng) -> dict:
     dev = torch.device(DEVICE)
     spec = BucketSpec()
@@ -293,6 +364,70 @@ def check_range_merge(torch, ops, ref, BucketSpec) -> dict:
     return {"max_abs_err": 0.0, "fractional_max_rel_err": rel}
 
 
+def range_merge_slab(torch, dtype):
+    """A window query's inputs at full width, as the ring hands them over:
+    a slab of RM_SLICES nodes per store, a live bank, a cover of
+    RM_SLICES - 1 entries whose last two are padding (node 0, valid 0),
+    and (RM_SLICES, K) deltas of which ~60% are 0 and the rest 1-6."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    slab = [torch.randint(0, 1000, (RM_SLICES, K, M), generator=g, device=dev).to(dtype)
+            for _ in range(2)]
+    bank = [torch.randint(0, 1000, (K, M), generator=g, device=dev).to(dtype) for _ in range(2)]
+    nodes = torch.tensor([5, 1, 7, 12, 3, 0, 9, 11, 2, 4, 0, 0], device=dev)
+    valid = torch.ones(RM_SLICES - 1, device=dev)
+    valid[-2:] = 0.0
+    deltas = torch.randint(1, 7, (RM_SLICES, K), generator=g, device=dev, dtype=torch.int32)
+    steady = torch.rand((RM_SLICES, K), generator=g, device=dev) < 0.6
+    deltas = torch.where(steady, 0, deltas).to(torch.int32)
+    return slab, bank, nodes, valid, deltas
+
+
+def stacked_merge_block(torch, slab, bank, nodes):
+    """The (D + 1, 2K, m) float32 block that the gather before this design
+    built: the covered nodes of each store, then the live bank."""
+    return torch.cat([torch.cat([s.index_select(0, nodes).float(), b.float()[None]])
+                      for s, b in zip(slab, bank)], dim=1)
+
+
+def check_range_merge_nodes(torch, ops, ref, BucketSpec) -> dict:
+    """The node-indexed merge over a float32 and an int32 slab, with dead
+    padding nodes and the live gate on and off, bit for bit against the
+    stack-then-plain composition; fractional counts within 2 n u."""
+    spec = BucketSpec()
+    dev = torch.device(DEVICE)
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.int32):
+        slab, bank, nodes, valid, deltas = range_merge_slab(torch, dtype)
+        block = stacked_merge_block(torch, slab, bank, nodes)
+        for live in (1.0, 0.0):
+            gate = torch.tensor(live, device=dev)
+            mask = torch.cat([valid, gate[None]])
+            pos, neg = ops.bank_range_merge_nodes(*slab, nodes, valid, *bank, gate, deltas,
+                                                  spec=spec)
+            want = ref.bank_range_merge_ref(block, torch.cat([deltas, deltas], 1), spec=spec,
+                                            valid=mask)
+            check(torch.equal(torch.cat([pos, neg]), want),
+                  f"bank_range_merge_nodes {dtype} live={live}: not bit-exact")
+        if dtype == torch.float32:
+            frac = [t * torch.rand(t.shape, device=dev) for t in (*slab, *bank)]
+            gate = torch.tensor(1.0, device=dev)
+            pos, neg = ops.bank_range_merge_nodes(*frac[:2], nodes, valid, *frac[2:], gate,
+                                                  deltas, spec=spec)
+            want = ref.bank_range_merge_ref(
+                stacked_merge_block(torch, frac[:2], frac[2:], nodes),
+                torch.cat([deltas, deltas], 1), spec=spec, valid=torch.cat([valid, gate[None]]))
+            got = torch.cat([pos, neg])
+            n = (int(valid.sum()) + 1) * 2**6
+            rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+            check(rel <= 2 * n * U, f"bank_range_merge_nodes fractional: {rel} > 2 n u")
+            out["fractional_max_rel_err"] = rel
+            del frac
+        del slab, bank, block
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_histograms(torch, ops, ref, BucketSpec, rng) -> dict:
     """The segment and single-row histograms on the ingest check's lanes."""
     dev = torch.device(DEVICE)
@@ -390,6 +525,7 @@ def device_share(torch, prof, wall_s: float) -> dict:
         "device_busy_s": busy_s,
         "busy_share": busy_s / wall_s,
         "top_us": {name[:70]: us for name, us in top},
+        "index_select_us": sum(us for name, us in by_name.items() if "ndexSelect" in name),
     }
 
 
@@ -727,17 +863,24 @@ def profile_window_query(torch, window) -> dict:
     snapshot, each under ``torch.profiler``: the device's busy share and
     the heaviest device activities."""
     snap = window.snapshot()
+    # the (D + 1, 2K, m) float32 block the merge no longer gathers
+    block = (window.ring.max_range_nodes + 1) * 2 * K * M * 4
     out = {}
     for name, fn in (("query_64", lambda: snap.windowed_row_quantiles(ALPHA_QS, slices=64)),
                      ("rollup_60", lambda: snap.windowed_rollup(ALPHA_QS, slices=60))):
         fn()  # warm: the value table and allocator
         torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile() as prof:
             start = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
         out[name] = device_share(torch, prof, wall)
+        peak = torch.cuda.max_memory_allocated() - before
+        out[name]["peak_alloc_bytes"] = peak
+        check(peak < block / 2, f"window {name}: {peak} bytes allocated, the block is {block}")
         # a trace that lost the merge kernel's record understates the busy share
         out[name]["range_merge_traced"] = any("range_merge" in n for n in out[name]["top_us"])
     return out
@@ -839,13 +982,27 @@ def check_sketch_alpha(sketches, inputs, effective_alpha, spec) -> dict:
 # --------------------------------------------------------------------- #
 # phase 3: times on the card
 # --------------------------------------------------------------------- #
-def time_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of one call, after warm-up."""
+_FLUSH = []  # a buffer larger than the L2 cache, made on first use
+
+
+def time_ms(torch, fn, reps: int = 30, warmup: int = 5, flush: bool = True) -> float:
+    """Median of ``reps`` CUDA-event timings of one call, after warm-up.
+
+    Before each timed call a 512 MiB fill evicts the 50 MB L2 cache (a
+    tick or query finds its inputs cold) and keeps the card busy while the
+    host enqueues the call, so the events time the card's work and not
+    the host's launch overhead, which back-to-back launches of a short
+    kernel would add (``flush=False`` times them back to back, as this
+    script did before)."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(512 << 20, dtype=torch.uint8, device=DEVICE))
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
+        if flush:
+            _FLUSH[0].fill_(1)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -861,18 +1018,121 @@ def bound_ms(nbytes: float, nops: float, bw: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ingest_times(torch, ref, wrappers, spec, bw, xt, st_, lt) -> dict:
+    """The in-place ingest (``add_impl``'s fused path) into a float32 bank,
+    beside the composition it replaced (the delta form, then the bank's
+    eight adds), the delta form alone and the plain version (the plain
+    delta, then the adds)."""
+    dev = xt.device
+    into, delta = wrappers["ddsketch_ingest"], wrappers["ddsketch_ingest_delta"]
+    bank = [torch.zeros((K, M), device=dev) for _ in range(2)]
+    bank += [torch.zeros(K, device=dev) for _ in range(4)]
+    bank += [torch.full((K,), math.inf, device=dev), torch.full((K,), -math.inf, device=dev)]
+    from repro_torch.kernels.ref import IngestStats
+
+    stats = IngestStats(*bank[2:])
+
+    def add_delta(hist, st):
+        bank[0].add_(hist[:K])
+        bank[1].add_(hist[K:])
+        for leaf, d in zip(bank[2:6], st[:4]):
+            leaf.add_(d)
+        torch.minimum(bank[6], st.vmin, out=bank[6])
+        torch.maximum(bank[7], st.vmax, out=bank[7])
+
+    def call():
+        into(xt, st_, None, lt, pos=bank[0], neg=bank[1], stats=stats, spec=spec)
+
+    t_k = time_ms(torch, call)
+    t_b = time_ms(torch, call, flush=False)
+    t_d = time_ms(torch, lambda: delta(xt, st_, None, lt, num_segments=K, spec=spec))
+    t_o = time_ms(torch, lambda: add_delta(*delta(xt, st_, None, lt, num_segments=K, spec=spec)))
+    t_p = time_ms(torch, lambda: add_delta(*ref.fused_ingest_ref(xt, st_, None, lt,
+                                                                 num_segments=K, spec=spec)))
+    # bound: the lanes (x, ids, levels) read once, each distinct 32-byte
+    # histogram sector the lanes touch read and written once, the six
+    # stat leaves read and written once
+    hist, _ = ref.fused_ingest_ref(xt, st_, None, lt, num_segments=K, spec=spec)
+    sectors = int((hist.reshape(-1, 8) != 0).any(1).sum())
+    nbytes = 12 * TICK_LANES + 2 * 32 * sectors + 2 * 6 * K * 4
+    b, by = bound_ms(nbytes, 32 * TICK_LANES, bw)  # ~32 operations per lane
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None,
+                ms_delta_form=t_d, ms_old_composition=t_o, ms_back_to_back=t_b, sectors=sectors,
+                old_composition="the delta form (fresh zeroed outputs), then the bank's adds")
+
+
+def range_merge_times(torch, ref, wrappers, spec, bw) -> dict:
+    """The node-indexed range merge over a slab (the window query's form)
+    beside the composition it replaced (the gather into a (D + 1, 2K, m)
+    block, then the stacked merge), the stacked merge alone, the every-
+    delta-0 case and ``einsum`` on that case."""
+    dev = torch.device(DEVICE)
+    slab, bank, nodes, valid, deltas = range_merge_slab(torch, torch.float32)
+    gate = torch.tensor(1.0, device=dev)
+    mask = torch.cat([valid, gate[None]])
+    n32 = nodes.to(torch.int32)
+    rm, stacked = wrappers["bank_range_merge"], wrappers["bank_range_merge_stacked"]
+
+    def kernel_deltas(d):  # as ops hands them over: dead slices at -1
+        return torch.where(mask[:, None] > 0, d, -1).to(torch.int32).contiguous()
+
+    kd, k0 = kernel_deltas(deltas), kernel_deltas(torch.zeros_like(deltas))
+    kd2 = torch.cat([kd, kd], 1).contiguous()
+    block = stacked_merge_block(torch, slab, bank, nodes)
+    d_slices = RM_SLICES - 1
+
+    def old_composition():  # the gather into a block, then the stacked kernel
+        counts = torch.empty((RM_SLICES, 2 * K, M), dtype=torch.float32, device=dev)
+        for rows, node_leaf, bank_leaf in ((slice(0, K), slab[0], bank[0]),
+                                           (slice(K, 2 * K), slab[1], bank[1])):
+            torch.index_select(node_leaf, 0, nodes, out=counts[:d_slices, rows])
+            counts[d_slices, rows] = bank_leaf
+        return stacked(counts, kd2, spec=spec)
+
+    t_k = time_ms(torch, lambda: rm(*slab, n32, *bank, kd, spec=spec))
+    t_k0 = time_ms(torch, lambda: rm(*slab, n32, *bank, k0, spec=spec))
+    t_s = time_ms(torch, lambda: stacked(block, kd2, spec=spec))
+    t_o = time_ms(torch, old_composition)
+    t_p = time_ms(torch, lambda: ref.bank_range_merge_ref(
+        stacked_merge_block(torch, slab, bank, nodes), torch.cat([deltas, deltas], 1),
+        spec=spec, valid=mask))
+    t_l = time_ms(torch, lambda: torch.einsum("d,drm->rm", mask, block))
+    # a streaming yardstick: the same bytes (the live slices read, one row
+    # block written) through torch.sum over a contiguous block
+    live_block = block[mask > 0].contiguous()
+    t_sum = time_ms(torch, lambda: live_block.sum(0))
+    del live_block
+    live = int(mask.sum())  # dead slices need not be read
+    rows = 2 * K
+    b, by = bound_ms((live + 1) * rows * M * 4 + RM_SLICES * K * 4, live * rows * M, bw)
+    return dict(
+        ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=t_l,
+        library_covers="every delta 0 (einsum over the stacked block's slice axis); "
+                       "ms_every_delta_0 is the kernel on that case",
+        ms_every_delta_0=t_k0, ms_stacked=t_s, ms_old_composition=t_o, ms_stream_sum=t_sum,
+        old_composition="index_select of the covered nodes and a copy of the live bank into "
+                        "a (D + 1, 2K, m) block, then the stacked merge",
+    )
+
+
 def timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng) -> dict:
     dev = torch.device(DEVICE)
     spec = BucketSpec()
     out = {}
     x, s, lev, _ = ingest_lanes(rng, TICK_LANES, K)
     xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
-    ingest = wrappers["ddsketch_ingest"]
-    t_k = time_ms(torch, lambda: ingest(xt, st_, None, lt, num_segments=K, spec=spec))
-    t_p = time_ms(torch, lambda: ref.fused_ingest_ref(xt, st_, None, lt, num_segments=K, spec=spec))
-    nbytes = 12 * TICK_LANES + 2 * K * M * 4 + 6 * K * 4  # x, ids, levels in; hist, stats out
-    b, by = bound_ms(nbytes, 32 * TICK_LANES, bw)  # ~32 operations per lane
-    out["ddsketch_ingest"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None)
+    out["ddsketch_ingest"] = ingest_times(torch, ref, wrappers, spec, bw, xt, st_, lt)
+    # the serving tick's own lanes: Zipf(1.1) keys over 4095 rows, level 0
+    zrng = np.random.default_rng(SEED + 4)
+    zrows = np.repeat(np.arange(CAPACITY, dtype=np.int32), zrng.multinomial(TICK_LANES,
+                                                                            zipf_probs(CAPACITY)))
+    zt = [torch.from_numpy(a).to(dev) for a in (latencies(zrng, TICK_LANES), zrows)]
+    zl = torch.zeros(TICK_LANES, dtype=torch.int32, device=dev)
+    zipf = ingest_times(torch, ref, wrappers, spec, bw, zt[0], zt[1], zl)
+    out["ddsketch_ingest"]["zipf_serving_lanes"] = {
+        key: zipf[key] for key in ("ms", "bound_ms", "ms_delta_form", "ms_old_composition",
+                                   "ms_back_to_back", "sectors")}
+    del zt, zl
 
     c = torch.from_numpy(rng.integers(0, 1000, (K, M)).astype(np.float32)).to(dev)
     rows = torch.ones(K, dtype=torch.bool, device=dev)
@@ -896,26 +1156,7 @@ def timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng) -> di
     b, by = bound_ms(nbytes, (2 + nq) * K * (2 * M + 1), bw)  # scan + Q rank counts
     out["bank_quantiles"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None)
 
-    # the range merge at the window query's block, as ops.bank_range_merge
-    # hands it to the kernel (deltas clipped, dead slices at -1)
-    counts, deltas, valid = range_merge_inputs(torch)
-    rm = wrappers["bank_range_merge"]
-    kd = torch.where(valid[:, None] > 0, deltas, -1).to(torch.int32).contiguous()
-    k0 = torch.where(valid[:, None] > 0, 0, -1).to(torch.int32).expand_as(kd).contiguous()
-    t_k = time_ms(torch, lambda: rm(counts, kd, spec=spec))
-    t_k0 = time_ms(torch, lambda: rm(counts, k0, spec=spec))
-    t_p = time_ms(torch, lambda: ref.bank_range_merge_ref(counts, deltas, spec=spec, valid=valid))
-    t_l = time_ms(torch, lambda: torch.einsum("d,drm->rm", valid, counts))
-    live = int(valid.sum())  # dead slices need not be read
-    rows = 2 * K
-    b, by = bound_ms((live + 1) * rows * M * 4 + RM_SLICES * rows * 4, live * rows * M, bw)
-    out["bank_range_merge"] = dict(
-        ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=t_l,
-        library_covers="every delta 0 (einsum over the slice axis); ms_every_delta_0 is the "
-                       "kernel on that case",
-        ms_every_delta_0=t_k0,
-    )
-    del counts, deltas, kd, k0
+    out["bank_range_merge"] = range_merge_times(torch, ref, wrappers, spec, bw)
 
     x, s, lev, _ = ingest_lanes(rng, TICK_LANES, K)
     xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
@@ -949,6 +1190,14 @@ def timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng) -> di
 
 
 # --------------------------------------------------------------------- #
+def max_abs_err(err: dict) -> float:
+    """The largest ``max_abs_err`` of a kernel's checks (one dict, or one
+    per form)."""
+    if "max_abs_err" in err:
+        return err["max_abs_err"]
+    return max(max_abs_err(e) for e in err.values() if isinstance(e, dict))
+
+
 REPLACES = {
     "ddsketch_ingest": "src/repro/kernels/ddsketch_ingest.py:59",
     "fold_pairs": "src/repro/kernels/fold_pairs.py:40",
@@ -989,19 +1238,26 @@ def main() -> int:
     from repro_torch.engine.tables import device_value_table
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.bank_quantiles import bank_quantiles_cuda
-    from repro_torch.kernels.bank_range_merge import bank_range_merge_cuda
+    from repro_torch.kernels.bank_range_merge import (
+        bank_range_merge_cuda,
+        bank_range_merge_nodes_cuda,
+    )
     from repro_torch.kernels.ddsketch_hist import histogram_cuda
-    from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda
+    from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda, ddsketch_ingest_into_cuda
     from repro_torch.kernels.ddsketch_scatter import scatter_cuda
     from repro_torch.kernels.ddsketch_seg_hist import segment_histogram_cuda
     from repro_torch.kernels.fold_pairs import fold_pairs_cuda
     from repro_torch.kernels.ref import BucketSpec
 
     wrappers = {
-        "ddsketch_ingest": ddsketch_ingest_cuda,
+        # the forms the main paths launch: in place, and node-indexed
+        "ddsketch_ingest": ddsketch_ingest_into_cuda,
         "fold_pairs": fold_pairs_cuda,
         "bank_quantiles": bank_quantiles_cuda,
-        "bank_range_merge": bank_range_merge_cuda,
+        "bank_range_merge": bank_range_merge_nodes_cuda,
+        # the delta and stacked forms, timed beside them
+        "ddsketch_ingest_delta": ddsketch_ingest_cuda,
+        "bank_range_merge_stacked": bank_range_merge_cuda,
         "ddsketch_seg_hist": segment_histogram_cuda,
         "ddsketch_hist": histogram_cuda,
         "ddsketch_scatter": scatter_cuda,
@@ -1024,10 +1280,12 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     t = time.perf_counter()
     errs = {
-        "ddsketch_ingest": check_ingest(torch, ops, ref, BucketSpec, rng),
+        "ddsketch_ingest": {"delta_form": check_ingest(torch, ops, ref, BucketSpec, rng),
+                            "in_place": check_ingest_into(torch, ops, ref, BucketSpec, rng)},
         "fold_pairs": check_fold(torch, ops, ref, BucketSpec, rng),
         "bank_quantiles": check_quantiles(torch, ops, ref, BucketSpec, device_value_table, rng),
-        "bank_range_merge": check_range_merge(torch, ops, ref, BucketSpec),
+        "bank_range_merge": {"stacked": check_range_merge(torch, ops, ref, BucketSpec),
+                             "nodes": check_range_merge_nodes(torch, ops, ref, BucketSpec)},
         **check_histograms(torch, ops, ref, BucketSpec, rng),
         "ddsketch_scatter": check_scatter(torch, ops, ref, BucketSpec, rng),
     }
@@ -1134,7 +1392,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{kname}.cu",
             "replaces": REPLACES[kname],
             "launches": launches[HOME_PATH[kname]][kname],
-            "max_abs_err": errs[kname]["max_abs_err"],
+            "max_abs_err": max_abs_err(errs[kname]),
             **times[kname],
         })
     for row in kernels:

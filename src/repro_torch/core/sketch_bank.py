@@ -116,7 +116,11 @@ def add_impl(
     values are indexable, so nothing clamps.
 
     ``method`` picks the insert pipeline.  None and ``"fused"`` take the
-    fused ingest kernel (histograms and the six row stats in one launch).
+    fused ingest kernel (histograms and the six row stats in one launch):
+    a float32 bank takes its in-place form (``ops.fused_ingest_into``),
+    which adds every lane straight into the bank's leaves; an int32 bank
+    takes the delta form and adds the delta cast to int32, as the
+    reference does.
     ``"matmul"`` (two segment-histogram launches) and ``"sort"`` (the
     compaction and the scatter launch) go through ``ops.bank_histograms``
     and then one pass for the row stats (``index_add_`` and
@@ -150,11 +154,12 @@ def add_impl(
         collapse_to(bank, torch.maximum(bank.level, per_row), spec=spec)
     shifts = bank.level[sc]  # per-value levels for the kernels
 
-    cd = bank.pos.dtype
+    leaves = ops.IngestStats(*bank[2:8])
+    if fused and bank.pos.dtype == torch.float32:  # straight into the bank's leaves
+        ops.fused_ingest_into(bank.pos, bank.neg, leaves, x, s, raw_w, shifts, spec=spec)
+        return bank
     if fused:
-        pos_h, neg_h, st = ops.fused_ingest(x, s, raw_w, shifts, num_segments=k, spec=spec)
-        stats = st[:4]
-        vmin, vmax = st.vmin, st.vmax
+        pos_h, neg_h, delta = ops.fused_ingest(x, s, raw_w, shifts, num_segments=k, spec=spec)
     else:
         pos_h, neg_h = ops.bank_histograms(
             x, s, raw_w, shifts, num_segments=k, spec=spec, method=method
@@ -173,14 +178,8 @@ def add_impl(
         vmax = torch.full((k,), -math.inf, dtype=torch.float32, device=dev)
         vmin.scatter_reduce_(0, sc, torch.where(contributes, x, math.inf), "amin")
         vmax.scatter_reduce_(0, sc, torch.where(contributes, x, -math.inf), "amax")
-    bank.pos.add_(pos_h.to(cd))
-    bank.neg.add_(neg_h.to(cd))
-    bank.zero.add_(stats[0].to(cd))
-    bank.overflow.add_(stats[1].to(cd))
-    bank.underflow.add_(stats[2].to(cd))
-    bank.summ.add_(stats[3])
-    torch.minimum(bank.vmin, vmin, out=bank.vmin)
-    torch.maximum(bank.vmax, vmax, out=bank.vmax)
+        delta = ops.IngestStats(*stats, vmin, vmax)
+    ops.add_delta(bank.pos, bank.neg, leaves, pos_h, neg_h, delta)
     return bank
 
 

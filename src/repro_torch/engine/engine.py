@@ -16,7 +16,8 @@ id -1 / weight 0), so the kernels see the same shapes as the JAX path.
 The window-ring slab (``new_slab``) is a bank with a leading node axis;
 ``seal_slice`` and ``merge_node`` write into it in place, and
 ``window_query`` / ``window_rollup`` answer a slice range through one
-``bank_range_merge`` launch (``window_merge_bank``).
+``bank_range_merge`` launch that reads the covered slab nodes and the live
+bank where they lie (``window_merge_bank``).
 
 The engine's ``device`` defaults to the card; ``device="cuda"`` without a
 CUDA device raises instead of carrying on on the CPU.  Row sharding
@@ -64,25 +65,26 @@ def window_merge_bank(
 ) -> SketchBank:
     """A window query's merge: slab nodes plus the live bank -> one bank.
 
-    Gathers the ``(D,)`` ``nodes`` of the slab (``valid`` is their (D,)
-    0/1 mask; padding entries point at node 0 and contribute nothing),
-    appends the live bank as one more slice gated by the 0-d ``live``,
-    reconciles every slice row to the range's per-row max collapse level
-    and sums the slice axis.  Returns a float32 ``SketchBank`` of the
-    merged rows, bit-identical for integer-valued counts to merging the
-    slices one by one with ``sketch_bank.merge``.
+    Reads the ``(D,)`` ``nodes`` of the slab (``valid`` is their (D,) 0/1
+    mask; padding entries point at node 0 and contribute nothing), then
+    the live bank as one more slice gated by the 0-d ``live``, reconciles
+    every slice row to the range's per-row max collapse level and sums the
+    slice axis.  Returns a float32 ``SketchBank`` of the merged rows,
+    bit-identical for integer-valued counts to merging the slices one by
+    one with ``sketch_bank.merge``.
 
-    The pos and neg stores ride ONE ``ops.bank_range_merge`` launch over a
-    stacked ``(D+1, 2K, m)`` block on every query.  The reference picks a
-    steady-state sum or the reconciling merge with a ``lax.cond``; here
-    the merge's delta-0 case is the steady sum, so no host read picks a
-    branch.  The slice order is nodes ``0..D-1``, then the live bank (the
-    reference's reconciliation order; its steady branch adds the live bank
-    first, which matters for fractional counts only).
+    The pos and neg stores ride ONE ``ops.bank_range_merge_nodes`` launch
+    that reads the slab nodes and the live bank where they lie: no
+    ``(D+1, 2K, m)`` block is gathered, and an int32 slab is converted as
+    it is read.  The reference picks a steady-state sum or the reconciling
+    merge with a ``lax.cond``; here the merge's delta-0 case is the steady
+    sum, so no host read picks a branch.  The slice order is nodes
+    ``0..D-1``, then the live bank (the reference's reconciliation order;
+    its steady branch adds the live bank first, which matters for
+    fractional counts only).  Only the small per-row leaves (levels and
+    the six stats, ``(D+1, K)``) are gathered.
     """
     f32_ = torch.float32
-    k, m = bank.pos.shape
-    d = nodes.numel()
     mask = torch.cat([valid.to(f32_).reshape(-1), live.to(f32_).reshape(1)])  # (D+1,)
     alive = mask > 0
 
@@ -91,19 +93,9 @@ def window_merge_bank(
 
     lvl = torch.cat([slab.level.index_select(0, nodes), bank.level[None]])  # (D+1, K)
     target = torch.where(alive[:, None], lvl, 0).amax(0).to(torch.int32)  # (K,)
-    delta = target[None, :] - lvl
-    # the (D+1, 2K, m) block is written once: each store's nodes are
-    # gathered straight into their rows, the live bank into the last slice
-    counts = torch.empty((d + 1, 2 * k, m), dtype=f32_, device=bank.pos.device)
-    for rows, node_leaf, bank_leaf in ((slice(0, k), slab.pos, bank.pos),
-                                       (slice(k, 2 * k), slab.neg, bank.neg)):
-        if node_leaf.dtype == f32_:
-            torch.index_select(node_leaf, 0, nodes, out=counts[:d, rows])
-        else:
-            counts[:d, rows] = node_leaf.index_select(0, nodes)
-        counts[d, rows] = bank_leaf
-    merged = ops.bank_range_merge(
-        counts, torch.cat([delta, delta], dim=1), spec=spec, valid=mask
+    pos, neg = ops.bank_range_merge_nodes(
+        slab.pos, slab.neg, nodes, valid, bank.pos, bank.neg, live, target[None, :] - lvl,
+        spec=spec,
     )
 
     def msum(node_leaf, bank_leaf):
@@ -113,8 +105,8 @@ def window_merge_bank(
         return red(torch.where(alive[:, None], stacked(node_leaf, bank_leaf), fill), 0)
 
     return SketchBank(
-        pos=merged[:k],
-        neg=merged[k:],
+        pos=pos,
+        neg=neg,
         zero=msum(slab.zero, bank.zero),
         overflow=msum(slab.overflow, bank.overflow),
         underflow=msum(slab.underflow, bank.underflow),

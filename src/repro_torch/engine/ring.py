@@ -4,7 +4,7 @@ power-of-two merge-tree cache so any slice range costs O(log S) node reads.
 Merge is a per-bucket '+' (Algorithm 4, full mergeability), so sliding-
 window quantiles keep one bank per time slice and merge the slices a query
 covers.  Naively that is W-1 host-looped merges per query; here it is
-O(log S) cached nodes feeding ONE ``bank_range_merge`` launch:
+O(log S) cached nodes read in place by ONE ``bank_range_merge`` launch:
 
 * **Slab** -- all ring state is one stacked bank of shape ``(2S-1, K, ...)``
   per leaf, minted by ``SketchEngine.new_slab``.  Nodes ``0..S-1`` are the

@@ -1,16 +1,17 @@
-"""Front doors of the port's kernels: ``fused_ingest``, ``fold_pairs``,
-``bank_quantiles``, ``bank_range_merge``, ``segment_histogram``,
+"""Front doors of the port's kernels: ``fused_ingest`` and
+``fused_ingest_into``, ``fold_pairs``, ``bank_quantiles``,
+``bank_range_merge`` and ``bank_range_merge_nodes``, ``segment_histogram``,
 ``ddsketch_histogram`` and ``ddsketch_scatter``, plus the insert-pipeline
 router ``bank_histograms`` and its rule ``insert_method``.
 
 The device of the tensors decides the implementation; there is no
 ``force=`` pin and no fallback.  A CUDA tensor always launches the
-hand-written kernel (``ddsketch_ingest_cuda``, ``fold_pairs_cuda``,
-``bank_quantiles_cuda``, ``bank_range_merge_cuda``,
-``segment_histogram_cuda``, ``histogram_cuda``, ``scatter_cuda``) and a
-failed build or launch raises; a CPU tensor takes the plain PyTorch
-version from ``ref``.  Each front door does the
-JAX package's input glue (flatten, cast, default weights / levels) before
+hand-written kernel (``ddsketch_ingest_cuda`` / ``_into_cuda``,
+``fold_pairs_cuda``, ``bank_quantiles_cuda``, ``bank_range_merge_cuda`` /
+``_nodes_cuda``, ``segment_histogram_cuda``, ``histogram_cuda``,
+``scatter_cuda``) and a failed build or launch raises; a CPU tensor takes
+the plain PyTorch version from ``ref``.  Each front door does the JAX
+package's input glue (flatten, cast, default weights / levels) before
 handing contiguous tensors to the kernel wrapper.
 
 ``dispatch_stats()`` reports one launch counter per kernel, bumped by the
@@ -25,9 +26,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bank_quantiles import bank_quantiles_cuda
-from repro_torch.kernels.bank_range_merge import bank_range_merge_cuda
+from repro_torch.kernels.bank_range_merge import (
+    bank_range_merge_cuda,
+    bank_range_merge_nodes_cuda,
+)
 from repro_torch.kernels.ddsketch_hist import histogram_cuda
-from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda
+from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda, ddsketch_ingest_into_cuda
 from repro_torch.kernels.ddsketch_scatter import scatter_cuda
 from repro_torch.kernels.ddsketch_seg_hist import segment_histogram_cuda
 from repro_torch.kernels.fold_pairs import fold_pairs_cuda
@@ -49,14 +53,17 @@ from repro_torch.kernels.ref import (
 __all__ = [
     "BucketSpec",
     "IngestStats",
+    "add_delta",
     "bank_histograms",
     "bank_quantiles",
     "bank_range_merge",
+    "bank_range_merge_nodes",
     "ddsketch_histogram",
     "ddsketch_scatter",
     "dispatch_stats",
     "fold_pairs",
     "fused_ingest",
+    "fused_ingest_into",
     "insert_method",
     "reset_dispatch_stats",
     "segment_histogram",
@@ -121,6 +128,56 @@ def fused_ingest(
         num_segments=k, spec=spec,
     )
     return both[:k], both[k:], stats
+
+
+def fused_ingest_into(
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    stats: IngestStats,
+    values: torch.Tensor,
+    segment_ids: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    levels: torch.Tensor | None = None,
+    *,
+    spec: BucketSpec,
+) -> None:
+    """The fused ingest, in place: the lanes add into ``pos`` / ``neg``
+    (``(K, m)``) and fold into the six ``(K,)`` ``stats`` leaves (counters
+    and ``summ`` add, extrema take the min / max).
+
+    On the card one kernel launch writes float32 leaves directly, with no
+    delta histogram.  On the CPU the plain version is ``fused_ingest_ref``
+    followed by the adds, each cast to its leaf's dtype.
+    """
+    k = pos.shape[0]
+    if _on_cuda(values):
+        ddsketch_ingest_into_cuda(
+            _lanes(values, torch.float32), _lanes(segment_ids, torch.int32),
+            _lanes(weights, torch.float32), _lanes(levels, torch.int32),
+            pos=pos, neg=neg, stats=stats, spec=spec,
+        )
+        return
+    both, delta = fused_ingest_ref(values, segment_ids, weights, levels, num_segments=k, spec=spec)
+    add_delta(pos, neg, stats, both[:k], both[k:], delta)
+
+
+def add_delta(
+    pos: torch.Tensor,
+    neg: torch.Tensor,
+    stats: IngestStats,
+    pos_delta: torch.Tensor,
+    neg_delta: torch.Tensor,
+    delta: IngestStats,
+) -> None:
+    """Fold a delta (two ``(K, m)`` histograms and their ``IngestStats``)
+    into a bank's leaves in place: counters and ``summ`` add, each cast to
+    its leaf's dtype; extrema take the min / max."""
+    pos.add_(pos_delta.to(pos.dtype))
+    neg.add_(neg_delta.to(neg.dtype))
+    for leaf, d in zip(stats[:4], delta[:4]):
+        leaf.add_(d.to(leaf.dtype))
+    torch.minimum(stats.vmin, delta.vmin, out=stats.vmin)
+    torch.maximum(stats.vmax, delta.vmax, out=stats.vmax)
 
 
 def fold_pairs(
@@ -221,6 +278,49 @@ def bank_range_merge(
         d = torch.where(v > 0, d, -1)
     return bank_range_merge_cuda(
         counts.to(torch.float32).contiguous(), d.contiguous(), spec=spec
+    )
+
+
+def bank_range_merge_nodes(
+    slab_pos: torch.Tensor,
+    slab_neg: torch.Tensor,
+    nodes: torch.Tensor,
+    valid: torch.Tensor,
+    bank_pos: torch.Tensor,
+    bank_neg: torch.Tensor,
+    live: torch.Tensor,
+    deltas: torch.Tensor,
+    *,
+    spec: BucketSpec,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A window query's range merge, read where the slices lie: ``(pos,
+    neg)``, each ``(K, m)`` float32.
+
+    The slices are the ``(D,)`` ``nodes`` of the slab's ``(nodes, K, m)``
+    stores, then the live bank; ``deltas`` is ``(D + 1, K)`` (row D for the
+    live bank), clipped to ``[0, MAX_COLLAPSE_LEVEL]``.  ``valid`` (the
+    ``(D,)`` 0/1 node mask; padding entries point at node 0) and the 0-d
+    ``live`` gate mark dead slices, which contribute nothing and are never
+    read.  On the card both stores ride one kernel launch that reads the
+    slab in place; on the CPU the plain version stacks the slices into a
+    ``(D + 1, 2K, m)`` block and runs ``bank_range_merge`` over it.  Exact
+    for integer-valued counts.
+    """
+    k = bank_pos.shape[0]
+    mask = torch.cat([valid.to(torch.float32).reshape(-1), live.to(torch.float32).reshape(1)])
+    if not _on_cuda(slab_pos):
+        f32_ = torch.float32
+        counts = torch.cat([
+            torch.cat([slab.index_select(0, nodes).to(f32_), bank.to(f32_)[None]])
+            for slab, bank in ((slab_pos, bank_pos), (slab_neg, bank_neg))
+        ], dim=1)
+        merged = bank_range_merge(counts, torch.cat([deltas, deltas], dim=1), spec=spec,
+                                  valid=mask)
+        return merged[:k], merged[k:]
+    d = torch.clamp(deltas.to(torch.int32), 0, MAX_COLLAPSE_LEVEL)
+    d = torch.where(mask.to(d.device)[:, None] > 0, d, -1)
+    return bank_range_merge_nodes_cuda(
+        slab_pos, slab_neg, nodes.to(torch.int32), bank_pos, bank_neg, d.contiguous(), spec=spec
     )
 
 

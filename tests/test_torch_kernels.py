@@ -121,6 +121,15 @@ def test_dispatch_stats_count_launches_only():
     tops.ddsketch_histogram(torch.ones(4), spec=ts)
     tops.ddsketch_scatter(torch.zeros(4, dtype=torch.int32), torch.ones(4), num_rows=1,
                           num_buckets=512)
+    leaves = [torch.zeros(1, 512), torch.zeros(1, 512),
+              *(torch.zeros(1) for _ in range(4)), torch.full((1,), np.inf),
+              torch.full((1,), -np.inf)]
+    tops.fused_ingest_into(leaves[0], leaves[1], tops.IngestStats(*leaves[2:]), torch.ones(4),
+                           torch.zeros(4, dtype=torch.int32), spec=ts)
+    tops.bank_range_merge_nodes(torch.zeros(2, 1, 512), torch.zeros(2, 1, 512),
+                                torch.tensor([1, 0]), torch.tensor([1.0, 0.0]),
+                                torch.zeros(1, 512), torch.zeros(1, 512), torch.tensor(1.0),
+                                torch.zeros(3, 1, dtype=torch.int32), spec=ts)
     stats = tops.dispatch_stats()
     assert stats == {"launches": {
         "ddsketch_ingest": 0, "fold_pairs": 0, "bank_quantiles": 0, "bank_range_merge": 0,
@@ -168,6 +177,19 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         bank_range_merge_cuda(torch.zeros(2, 2, 512), torch.zeros(2, 2, dtype=torch.int32),
                               spec=ts)
+    from repro_torch.kernels.bank_range_merge import bank_range_merge_nodes_cuda
+    from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_into_cuda
+
+    with pytest.raises(ValueError):
+        bank_range_merge_nodes_cuda(torch.zeros(2, 1, 512), torch.zeros(2, 1, 512),
+                                    torch.zeros(1, dtype=torch.int32), torch.zeros(1, 512),
+                                    torch.zeros(1, 512), torch.zeros(2, 1, dtype=torch.int32),
+                                    spec=ts)
+    with pytest.raises(ValueError):
+        ddsketch_ingest_into_cuda(x, x.int(), None, None, pos=torch.zeros(1, 512),
+                                  neg=torch.zeros(1, 512),
+                                  stats=tref.IngestStats(*(torch.zeros(1) for _ in range(6))),
+                                  spec=ts)
     with pytest.raises(ValueError):
         segment_histogram_cuda(x, x.int(), None, None, num_segments=1, spec=ts)
     with pytest.raises(ValueError):
@@ -235,3 +257,69 @@ def test_cuda_window_and_insert_kernels_match_plain_versions(rng):
     launches = tops.dispatch_stats()["launches"]
     for name in ("bank_range_merge", "ddsketch_seg_hist", "ddsketch_hist", "ddsketch_scatter"):
         assert launches[name] > 0, name
+
+
+@pytest.mark.gpu
+def test_cuda_in_place_ingest_and_node_merge_match_plain_versions(rng):
+    """The in-place ingest into a non-empty bank against the plain delta
+    plus the adds, and the node-indexed merge over float32 and int32 slabs
+    against the stack-then-plain composition; one window query launches the
+    merge once and allocates nothing of the (D + 1, 2K, m) block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    from repro_torch.core import sketch_bank as tsb
+    from repro_torch.engine import SketchEngine, WindowRing
+
+    dev = torch.device("cuda")
+    ts = TSpec()
+    k, n, m = 64, 1 << 16, ts.num_buckets
+    x, s, lev = _lanes(rng, n, k)
+    xt, st_, lt = (torch.from_numpy(a).to(dev) for a in (x, s, lev))
+    w = torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(dev)
+    bank0 = [torch.from_numpy(rng.integers(0, 9, (k, m)).astype(np.float32)).to(dev)
+             for _ in range(2)]
+    bank0 += [torch.from_numpy(rng.integers(0, 9, k).astype(np.float32)).to(dev)
+              for _ in range(4)]
+    bank0 += [torch.full((k,), 0.5, device=dev), torch.full((k,), 2.0, device=dev)]
+    for wt in (None, w):
+        got = [t.clone() for t in bank0]
+        tops.fused_ingest_into(got[0], got[1], tops.IngestStats(*got[2:]), xt, st_, wt, lt,
+                               spec=ts)
+        hp, sp = tref.fused_ingest_ref(xt, st_, wt, lt, num_segments=k, spec=ts)
+        want = [bank0[0] + hp[:k], bank0[1] + hp[k:],
+                *(b + d for b, d in zip(bank0[2:5], sp[:3]))]
+        assert all(torch.equal(g, v) for g, v in zip(got[:5], want))
+        assert torch.equal(got[6], torch.minimum(bank0[6], sp.vmin))
+        assert torch.equal(got[7], torch.maximum(bank0[7], sp.vmax))
+    for dtype in (torch.float32, torch.int32):
+        slab = [torch.from_numpy(rng.integers(0, 100, (7, k, m))).to(dev, dtype)
+                for _ in range(2)]
+        live = [torch.from_numpy(rng.integers(0, 100, (k, m))).to(dev, dtype) for _ in range(2)]
+        nodes = torch.tensor([4, 2, 6, 0], device=dev)
+        valid = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+        deltas = torch.from_numpy(rng.integers(0, 7, (5, k)).astype(np.int32)).to(dev)
+        for gate in (1.0, 0.0):
+            g = torch.tensor(gate, device=dev)
+            pos, neg = tops.bank_range_merge_nodes(*slab, nodes, valid, *live, g, deltas, spec=ts)
+            block = torch.cat([torch.cat([sl.index_select(0, nodes).float(), lv.float()[None]])
+                               for sl, lv in zip(slab, live)], dim=1)
+            want = tref.bank_range_merge_ref(block, torch.cat([deltas, deltas], 1), spec=ts,
+                                             valid=torch.cat([valid, g[None]]))
+            assert torch.equal(torch.cat([pos, neg]), want)
+    eng = SketchEngine(ts, k, device="cuda")
+    ring = WindowRing(eng, 16)
+    for _ in range(19):
+        b = eng.new_bank()
+        tsb.add_impl(b, xt[:4096], st_[:4096], spec=ts)
+        ring.seal(b)
+    live_bank = eng.new_bank()
+    ring.quantiles(live_bank, [0.5], window_slices=16)  # warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tops.reset_dispatch_stats()
+    ring.quantiles(live_bank, [0.5, 0.99], window_slices=16)
+    torch.cuda.synchronize()
+    assert tops.dispatch_stats()["launches"]["bank_range_merge"] == 1
+    block_bytes = (ring.max_range_nodes + 1) * 2 * k * m * 4
+    assert torch.cuda.max_memory_allocated() - before < block_bytes / 2

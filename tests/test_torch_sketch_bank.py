@@ -99,6 +99,57 @@ def test_add_impl_matches_jax(dtype, auto_collapse, weighted, rng):
         assert (np.asarray(jb.level) > leaves[-1]).any()
 
 
+def _spy_ingest(monkeypatch):
+    """Count calls of the fused ingest's delta and in-place front doors."""
+    from repro_torch.kernels import ops as tops
+
+    calls = {"fused_ingest": 0, "fused_ingest_into": 0}
+    for name in calls:
+        real = getattr(tops, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(tops, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("auto_collapse", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_add_impl_float32_bank_ingests_in_place(auto_collapse, weighted, rng, monkeypatch):
+    """A float32 bank that has been ingesting takes the in-place front door
+    (no delta histogram) and still equals the JAX package's bank."""
+    js, ts = _specs()
+    leaves = _mid_stream(rng, np.float32)
+    jb, tb = _pair(leaves)
+    x, s, w = _batch(rng, 3000, weighted)
+    bound = _summ_bound(tb, x, s, w)
+    calls = _spy_ingest(monkeypatch)
+    jb = jsb.add(jb, jnp.asarray(x), jnp.asarray(s), None if w is None else jnp.asarray(w),
+                 spec=js, method="fused", auto_collapse=auto_collapse)
+    tsb.add_impl(tb, torch.from_numpy(x), torch.from_numpy(s),
+                 None if w is None else torch.from_numpy(w), spec=ts,
+                 auto_collapse=auto_collapse)
+    assert calls == {"fused_ingest": 0, "fused_ingest_into": 1}
+    _assert_same(tb, jb, bound)
+
+
+def test_add_impl_int32_bank_keeps_the_delta_path(rng, monkeypatch):
+    """An int32 bank adds the fused ingest's float delta cast to int32, as
+    the reference does, so it stays on the delta front door."""
+    js, ts = _specs()
+    jb, tb = _pair(_mid_stream(rng, np.int32))
+    x, s, w = _batch(rng, 3000, True)
+    bound = _summ_bound(tb, x, s, w)
+    calls = _spy_ingest(monkeypatch)
+    jb = jsb.add(jb, jnp.asarray(x), jnp.asarray(s), jnp.asarray(w), spec=js, method="fused")
+    tsb.add_impl(tb, torch.from_numpy(x), torch.from_numpy(s), torch.from_numpy(w), spec=ts)
+    assert calls == {"fused_ingest": 1, "fused_ingest_into": 0}
+    assert tb.pos.dtype == torch.int32
+    _assert_same(tb, jb, bound)
+
+
 @pytest.mark.parametrize("mapping", ["log", "cubic"])
 def test_add_impl_other_mappings(mapping, rng):
     js, ts = _specs(mapping)

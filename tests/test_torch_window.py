@@ -17,6 +17,7 @@ fractional window test uses.
 """
 
 import json
+import math
 from urllib.error import HTTPError
 from urllib.request import urlopen
 
@@ -170,6 +171,123 @@ def test_range_merge_rejects_bad_shapes():
     with pytest.raises(ValueError):
         tref.bank_range_merge_ref(torch.zeros(2, 3, 64), torch.zeros(2, 3, dtype=torch.int32),
                                   spec=ts)
+
+
+def _node_merge_inputs(rng, dtype, counts, k=5, s_nodes=7, m=512):
+    """A slab of ``s_nodes`` nodes and a live bank at mixed per-row levels,
+    as numpy leaves, and a cover of 5 entries whose last two are padding
+    (node 0, valid 0): integer counts, or the same times 0.37."""
+    def leaves(lead):
+        pos = rng.integers(0, 40, (*lead, k, m)).astype(np.float32)
+        neg = rng.integers(0, 5, (*lead, k, m)).astype(np.float32)
+        if counts == "frac":
+            pos, neg = pos * np.float32(0.37), neg * np.float32(0.37)
+        small = [rng.integers(0, 9, (*lead, k)).astype(np.float32) for _ in range(3)]
+        return [pos.astype(dtype), neg.astype(dtype), *(x.astype(dtype) for x in small),
+                rng.normal(0, 50, (*lead, k)).astype(np.float32),
+                rng.uniform(-5, 0, (*lead, k)).astype(np.float32),
+                rng.uniform(1, 9, (*lead, k)).astype(np.float32),
+                rng.integers(0, 4, (*lead, k)).astype(np.int32)]
+
+    nodes = np.array([3, 6, 1, 0, 0], np.int32)
+    valid = np.array([1, 1, 1, 0, 0], np.float32)
+    return leaves((s_nodes,)), leaves(()), nodes, valid
+
+
+@pytest.mark.parametrize("dtype,counts", [(np.float32, "int"), (np.float32, "frac"),
+                                          (np.int32, "int")])
+@pytest.mark.parametrize("mapping", ["linear", "log"])
+@pytest.mark.parametrize("live", [1.0, 0.0])
+def test_range_merge_nodes_front_door_matches_jax(dtype, counts, mapping, live, rng):
+    """The node-indexed merge (slab nodes and the live bank read where they
+    lie) against the JAX package's ``window_merge_bank`` and its plain
+    ``bank_range_merge_ref`` over the stacked block: float32 and int32
+    slabs, dead padding nodes, the live gate on and off; integer counts
+    bit-exact, fractional ones within 2 n u of each bucket."""
+    js, ts = _specs(mapping)
+    slab_l, bank_l, nodes, valid = _node_merge_inputs(rng, dtype, counts)
+    jslab = jsb.SketchBank(*(jnp.asarray(x) for x in slab_l))
+    jbank = jsb.SketchBank(*(jnp.asarray(x) for x in bank_l))
+    tslab = tsb.from_numpy(slab_l, device="cpu")
+    tbank = tsb.from_numpy(bank_l, device="cpu")
+    tn, tv = torch.from_numpy(nodes.astype(np.int64)), torch.from_numpy(valid)
+    want = j_window_merge_bank(jslab, jbank, jnp.asarray(nodes), jnp.asarray(valid),
+                               jnp.float32(live), spec=js)
+    lvl = np.concatenate([slab_l[8][nodes], bank_l[8][None]])
+    mask = np.concatenate([valid, [live]]).astype(np.float32)
+    deltas = np.where(mask[:, None] > 0, lvl, 0).max(0)[None] - lvl
+    pos, neg = tops.bank_range_merge_nodes(
+        tslab.pos, tslab.neg, tn, tv, tbank.pos, tbank.neg, torch.tensor(live),
+        torch.from_numpy(deltas.astype(np.int32)), spec=ts)
+    block = np.concatenate([np.concatenate([slab_l[j][nodes].astype(np.float32),
+                                            bank_l[j].astype(np.float32)[None]])
+                            for j in (0, 1)], axis=1)
+    plain = np.asarray(jref.bank_range_merge_ref(
+        jnp.asarray(block), jnp.asarray(np.concatenate([deltas, deltas], 1)), spec=js,
+        valid=jnp.asarray(mask)))
+    got = torch.cat([pos, neg]).numpy()
+    merged = t_window_merge_bank(tslab, tbank, tn, tv, torch.tensor(live), spec=ts)
+    if counts == "int":
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, np.concatenate([want.pos, want.neg]))
+        for name, g, j in zip(tsb.SketchBank._fields, tsb.to_numpy(merged), want):
+            if name == "summ":  # fractional sums of D + 1 terms, in another order
+                bound = 2 * (len(nodes) + 1) * U * np.abs(
+                    np.concatenate([slab_l[5][nodes], bank_l[5][None]])).sum(0)
+                assert np.all(np.abs(g - np.asarray(j)) <= bound)
+            else:
+                np.testing.assert_array_equal(g, np.asarray(j), err_msg=name)
+    else:
+        n = (len(nodes) + 1) * 2**6  # most terms one bucket sums
+        for ref_ in (plain, np.concatenate([want.pos, want.neg])):
+            assert np.all(np.abs(got - ref_) <= 2 * n * U * np.abs(ref_))
+        np.testing.assert_array_equal(merged.level.numpy(), np.asarray(want.level))
+
+
+def test_window_query_reads_the_slab_in_place(monkeypatch):
+    """One window query is one node-indexed merge, handed the slab's own
+    stores and the live bank's: apart from that front door (whose plain
+    CPU version stacks), nothing in the query builds a tensor of the
+    (D, K, m) gather or the (D + 1, 2K, m) block."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    js, ts = _specs(geom=SMALL)
+    k, s_ring = 4, 16
+    te = TEngine(ts, k, device="cpu")
+    tring = TRing(te, s_ring)
+    rng = np.random.default_rng(7)
+    for _ in range(s_ring + 3):
+        tring.seal(tsb.from_numpy(_leaves(_slice_bank(js, k, rng, n=30)), device="cpu"))
+    live = tsb.from_numpy(_leaves(_slice_bank(js, k, rng, n=30)), device="cpu")
+    d = tring.max_range_nodes
+    m = ts.num_buckets
+    calls, inside, shapes = [], [False], []
+    real = tops.bank_range_merge_nodes
+
+    def spy(slab_pos, slab_neg, nodes, valid, bank_pos, bank_neg, *a, **kw):
+        calls.append((slab_pos, slab_neg, bank_pos, bank_neg))
+        inside[0] = True
+        try:
+            return real(slab_pos, slab_neg, nodes, valid, bank_pos, bank_neg, *a, **kw)
+        finally:
+            inside[0] = False
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not inside[0]:
+                for t in out if isinstance(out, (tuple, list)) else (out,):
+                    if isinstance(t, torch.Tensor):
+                        shapes.append(tuple(t.shape))
+            return out
+
+    monkeypatch.setattr(tops, "bank_range_merge_nodes", spy)
+    with Shapes():
+        tring.quantiles(live, QS, window_slices=s_ring)
+    assert len(calls) == 1
+    assert calls[0] == (tring.slab.pos, tring.slab.neg, live.pos, live.neg)
+    assert shapes, "the dispatch mode saw no operations"
+    assert all(math.prod(sh) < d * k * m for sh in shapes), max(shapes, key=math.prod)
 
 
 # --------------------------------------------------------------------- #
