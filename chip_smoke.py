@@ -12,17 +12,27 @@ script builds the port's seven CUDA kernels from ``src/repro_torch/csrc``
    ticks of 2^20 lanes, Q = 8) over the three mappings, levels 0-6 and
    weights none / integer / fractional, with NaN, +-inf, +-0, out-of-range
    ids and padding lanes, in its delta form and in place into a non-empty
-   bank; the range merge at D + 1 = 13 slices of 2K = 8192 rows with deltas
-   0-6 and two dead slices, stacked and read by node index out of a
-   float32 and an int32 slab with the live gate on and off; the scatter on
-   the compacted triples of 2^20 lanes, and on duplicate keys;
+   bank; the bank query also at Q = 1 and 300, on float32 and int32 banks,
+   rows read through an offset view, a num_buckets = 1001 bank (rows at
+   every misalignment), num_buckets = 64 and 4096 banks (rows narrower and
+   wider than the kernel's registers hold) and the K = 1 rollup shape; the
+   single-row histogram also on a misaligned ``x[1:]`` view (with and
+   without its levels offset alike), N = 2^20 - 3, N = 5, every lane in one
+   bucket, every lane at level 6, rows of 64 and 1 buckets, and
+   back-to-back launches on one stream; the
+   range merge at D + 1 = 13 slices of 2K = 8192 rows with deltas 0-6 and
+   two dead slices, stacked and read by node index out of a float32 and an
+   int32 slab with the live gate on and off; the scatter on the compacted
+   triples of 2^20 lanes, and on duplicate keys;
 4. times each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one, with CUDA events around
    single calls on a card kept busy by an L2-evicting fill, and states each
    kernel's bound from the bytes it must move; the in-place ingest and the
    node-indexed range merge are timed beside the compositions they
-   replaced (before the paths below, whose serving tick runs under
-   ``torch.profiler``);
+   replaced, the bank query also at the windowed query's Q = 6 and beside
+   a ``torch.sum`` of the same bytes, and the single-row histogram's two
+   launches (binning into partial rows, their sum) also apart (before the
+   paths below, whose serving tick runs under ``torch.profiler``);
 3. drives each path of the port once at full width through the entry
    points a user calls, with the kernel launch counters zeroed just before
    and read just after; every kernel of the path must have launched:
@@ -52,7 +62,8 @@ script builds the port's seven CUDA kernels from ``src/repro_torch/csrc``
    equal to the same session run on the CPU.
 
 It prints the card's name and power limit, then a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
+line (each kernel's ``launches`` summed over the three paths, beside
+``launches_by_path``), and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the exit code is non-zero; with no CUDA device it exits 2 and prints no
 result.
 """
@@ -284,12 +295,12 @@ def check_fold(torch, ops, ref, BucketSpec, rng) -> dict:
     return {"max_abs_err": err}
 
 
-def quantile_bank(torch, rng, dt):
+def quantile_bank(torch, rng, dt, m: int = M):
     """A (K, m) bank at mixed levels with integer counts, empty rows and
     rows holding only zeros, plus the extrema the counts came from."""
     dev = torch.device(DEVICE)
-    pos = rng.poisson(rng.gamma(0.3, 2.0, (K, 1)), (K, M)).astype(np.float32)
-    neg = rng.poisson(0.05, (K, M)).astype(np.float32)
+    pos = rng.poisson(rng.gamma(0.3, 2.0, (K, 1)), (K, m)).astype(np.float32)
+    neg = rng.poisson(0.05, (K, m)).astype(np.float32)
     zero = rng.poisson(1.0, K).astype(np.float32)
     pos[:16] = 0
     neg[:16] = 0
@@ -302,31 +313,71 @@ def quantile_bank(torch, rng, dt):
     return t
 
 
+def offset_view(torch, t):
+    """``t``'s values in a buffer one element past a 16-byte boundary: the
+    same contiguous shape, every row misaligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:].copy_(t.reshape(-1))
+    return flat[1:].view(t.shape)
+
+
+def rollup_args(torch, args):
+    """The K = 1 query ``SketchEngine._rollup`` hands the kernel: the
+    bank's column sums, total zero count, extrema and top level."""
+    pos, neg, zero, vmin, vmax, level = args
+    return (pos.sum(0, keepdim=True), neg.sum(0, keepdim=True), zero.sum().reshape(1),
+            vmin.min().reshape(1), vmax.max().reshape(1), level.max().reshape(1))
+
+
 def check_quantiles(torch, ops, ref, BucketSpec, device_value_table, rng) -> dict:
+    """Bit for bit against the plain version on integer counts: float32 and
+    int32 banks at Q = 8, 1 and 300 (past one block's threads); rows read
+    through an offset view (none 16-byte aligned); a BucketSpec(num_buckets=
+    1001) bank, whose rows start at every misalignment; num_buckets = 64 and
+    4096 banks, narrower and wider than the rows the kernel holds in
+    registers; the K = 1 rollup shape.  Fractional counts: at most 0.1% of
+    the answers differ."""
     dev = torch.device(DEVICE)
     spec = BucketSpec()
-    table = device_value_table(spec, dev)
-    qs = torch.tensor(QS8, device=dev)
-    err = 0.0
+    widths = (BucketSpec(num_buckets=1001, offset=-500), BucketSpec(num_buckets=64, offset=-32),
+              BucketSpec(num_buckets=4096, offset=-2048))
+    qsets = (torch.tensor(QS8, device=dev), torch.tensor([0.99], device=dev),
+             torch.linspace(0.0, 1.0, 300, device=dev))
+    out = {"max_abs_err": 0.0, "exact_cases": 0}
+
+    def exact(args, sp, what):
+        table = device_value_table(sp, dev)
+        for qs in qsets:
+            got = ops.bank_quantiles(*args, qs, spec=sp, table=table)
+            want = ref.bank_quantiles_ref(*args, qs, table)
+            same = (got == want) | (got.isnan() & want.isnan())
+            check(bool(same.all()), f"bank_quantiles {what} Q={qs.numel()}: not bit-exact")
+            both = ~want.isnan()
+            if bool(both.any()):
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         float((got[both] - want[both]).abs().max()))
+            out["exact_cases"] += 1
+
     for dt in (torch.float32, torch.int32):
         args = quantile_bank(torch, rng, dt)
-        got = ops.bank_quantiles(*args, qs, spec=spec, table=table)
-        want = ref.bank_quantiles_ref(*args, qs, table)
-        same = (got == want) | (got.isnan() & want.isnan())
-        check(bool(same.all()), f"bank_quantiles {dt}: not bit-exact")
-        both = ~want.isnan()
-        err = max(err, float((got[both] - want[both]).abs().max()))
+        exact(args, spec, f"{dt}")
+        exact([offset_view(torch, a) for a in args[:3]] + args[3:], spec, f"{dt} offset view")
+        exact(rollup_args(torch, args), spec, f"{dt} K=1 rollup")
+        for sp in widths:
+            exact(quantile_bank(torch, rng, dt, m=sp.num_buckets), sp, f"{dt} m={sp.num_buckets}")
     # fractional counts: the block scan reassociates n and the cumulative
     # counts, so a rank at a bucket boundary may pick the neighbour bucket;
     # allow 0.1% of the (row, q) answers to differ
+    table = device_value_table(spec, dev)
     pos, neg, zero, vmin, vmax, level = quantile_bank(torch, rng, torch.float32)
     scale = torch.rand(pos.shape, device=dev)
     args = (pos * scale, neg * scale, zero * 0.37, vmin, vmax, level)
-    got = ops.bank_quantiles(*args, qs, spec=spec, table=table)
-    want = ref.bank_quantiles_ref(*args, qs, table)
+    got = ops.bank_quantiles(*args, qsets[0], spec=spec, table=table)
+    want = ref.bank_quantiles_ref(*args, qsets[0], table)
     differ = int((~((got == want) | (got.isnan() & want.isnan()))).sum())
     check(differ <= 1e-3 * got.numel(), f"bank_quantiles fractional: {differ} answers differ")
-    return {"max_abs_err": err, "fractional_differing": differ}
+    out["fractional_differing"] = differ
+    return out
 
 
 def range_merge_inputs(torch):
@@ -470,6 +521,62 @@ def check_histograms(torch, ops, ref, BucketSpec, rng) -> dict:
                     err = float(diff.max())
                     out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
                     check(err == 0.0, f"{name} {mapping}/{wkind}: not bit-exact ({err})")
+    out["ddsketch_hist"]["edge_cases"] = check_hist_edges(torch, ops, ref, BucketSpec, rng)
+    return out
+
+
+def hist_edge_cases(torch, rng):
+    """The single-row histogram's edge inputs, as (what, values, weights,
+    levels): a misaligned ``x[1:]`` view with its levels and weights (the
+    kernel's head path), one whose levels start elsewhere (every lane
+    scalar), N = 2^20 - 3, N = 5, every lane in one bucket, every lane at
+    collapse level 6."""
+    dev = torch.device(DEVICE)
+    n = TICK_LANES
+    x, _, lev, _ = ingest_lanes(rng, n, K)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lev).to(dev)
+    wt = torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(dev)
+    pareto = torch.from_numpy((rng.pareto(1.0, n) + 1.0).astype(np.float32)).to(dev)
+    return (
+        ("x[1:]", xt[1:], wt[1:], lt[1:]),
+        ("x[1:], levels[:-1]", xt[1:], None, lt[:-1]),
+        ("N = 2^20 - 3", xt[: n - 3], wt[: n - 3], lt[: n - 3]),
+        ("N = 5", xt[100:105], wt[100:105], lt[100:105]),
+        ("one bucket", torch.full((n,), 1.5, device=dev), wt, None),
+        ("level 6", pareto, None, torch.full((n,), 6, dtype=torch.int32, device=dev)),
+    )
+
+
+def check_hist_edges(torch, ops, ref, BucketSpec, rng) -> dict:
+    """Each edge case under ``linear`` (bit-exact) and ``log`` (at most
+    1e-5 of the lanes move one bucket), at m = 2048 and on rows of 64 and 1
+    buckets, then launches back to back on one stream with no synchronise
+    between them: each must count its own lanes only."""
+    out = {"cases": 0, "log_moved_lanes": 0.0}
+    cases = hist_edge_cases(torch, rng)
+    for mapping, widths in (("linear", ((2048, -1024), (64, -32), (1, 0))),
+                            ("log", ((2048, -1024), (64, -32)))):
+        for m, offset in widths:
+            spec = BucketSpec(mapping=mapping, num_buckets=m, offset=offset)
+            for what, x, w, lev in cases:
+                got = ops.ddsketch_histogram(x, w, lev, spec=spec)
+                want = ref.histogram_ref(x, w, lev, spec=spec)
+                diff = (got - want).abs()
+                if mapping == "linear":
+                    check(torch.equal(got, want), f"ddsketch_hist m={m} {what}: not bit-exact")
+                else:
+                    moved = float(diff.sum()) / 2
+                    out["log_moved_lanes"] = max(out["log_moved_lanes"], moved)
+                    check(moved <= 1e-5 * x.numel() * 3,
+                          f"ddsketch_hist log m={m} {what}: {moved} moved")
+                out["cases"] += 1
+    spec = BucketSpec(mapping="linear")
+    pairs = [(ops.ddsketch_histogram(x, w, lev, spec=spec), (x, w, lev))
+             for _, x, w, lev in (cases[0], cases[2], cases[0])]
+    for got, (x, w, lev) in pairs:
+        check(torch.equal(got, ref.histogram_ref(x, w, lev, spec=spec)),
+              "ddsketch_hist back to back: a launch after another differs")
+    out["back_to_back_launches"] = len(pairs)
     return out
 
 
@@ -1151,10 +1258,22 @@ def timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng) -> di
     bq = wrappers["bank_quantiles"]
     t_k = time_ms(torch, lambda: bq(*args, qs, table))
     t_p = time_ms(torch, lambda: ref.bank_quantiles_ref(*args, qs, table))
-    nq = len(QS8)
-    nbytes = 2 * K * M * 4 + 4 * K * 4 + table.numel() * 4 + nq * 4 + K * nq * 4
-    b, by = bound_ms(nbytes, (2 + nq) * K * (2 * M + 1), bw)  # scan + Q rank counts
-    out["bank_quantiles"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None)
+
+    def quantiles_bound(nq):  # the counts, row scalars and table read; (K, Q) written
+        nbytes = 2 * K * M * 4 + 4 * K * 4 + table.numel() * 4 + nq * 4 + K * nq * 4
+        return bound_ms(nbytes, K * (2 * (2 * M + 1) + 12 * nq), bw)  # scan + searches
+
+    b, by = quantiles_bound(len(QS8))
+    # the windowed query's own Q (ALPHA_QS), as the profiled 64-slice query runs it
+    qw = torch.tensor(ALPHA_QS, device=dev)
+    window_q = {"q": len(ALPHA_QS), "ms": time_ms(torch, lambda: bq(*args, qw, table)),
+                "bound_ms": quantiles_bound(len(ALPHA_QS))[0]}
+    # a streaming yardstick: the same 64 MiB of counts through one torch.sum
+    counts = torch.stack([args[0], args[1]])
+    t_sum = time_ms(torch, lambda: counts.sum())
+    del counts
+    out["bank_quantiles"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None,
+                                 window_query=window_q, ms_stream_sum=t_sum)
 
     out["bank_range_merge"] = range_merge_times(torch, ref, wrappers, spec, bw)
 
@@ -1170,7 +1289,15 @@ def timings(torch, ref, wrappers, BucketSpec, device_value_table, bw, rng) -> di
     t_k = time_ms(torch, lambda: hist(xt, None, lt, spec=spec))
     t_p = time_ms(torch, lambda: ref.histogram_ref(xt, None, lt, spec=spec))
     b, by = bound_ms(8 * TICK_LANES + M * 4, 32 * TICK_LANES, bw)  # x, levels; one row
-    out["ddsketch_hist"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None)
+    # its two launches apart: the lanes binned into per-CTA partial rows,
+    # then the rows summed
+    partials = wrappers["ddsketch_hist_bin"](xt, None, lt, spec=spec)
+    phases = {"bin": time_ms(torch, lambda: wrappers["ddsketch_hist_bin"](xt, None, lt,
+                                                                         spec=spec)),
+              "sum": time_ms(torch, lambda: wrappers["ddsketch_hist_sum"](partials)),
+              "partial_rows": partials.shape[0], "all": t_k}
+    out["ddsketch_hist"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=by, library_ms=None,
+                                ms_by_phase=phases)
 
     keys, wts = ref.compact_triples(xt, st_, None, lt, num_segments=K, spec=spec)
     cap = min(TICK_LANES, 2 * K * M + 1)
@@ -1207,16 +1334,6 @@ REPLACES = {
     "ddsketch_hist": "src/repro/kernels/ddsketch_hist.py:42",
     "ddsketch_scatter": "src/repro/kernels/ddsketch_scatter.py:53",
 }
-# the path whose run a kernel's launch count comes from
-HOME_PATH = {
-    "ddsketch_ingest": "serving",
-    "fold_pairs": "serving",
-    "bank_quantiles": "serving",
-    "bank_range_merge": "window",
-    "ddsketch_seg_hist": "insert",
-    "ddsketch_hist": "insert",
-    "ddsketch_scatter": "insert",
-}
 # the kernels each path must have launched
 PATH_KERNELS = {
     "serving": ("ddsketch_ingest", "fold_pairs", "bank_quantiles"),
@@ -1242,7 +1359,7 @@ def main() -> int:
         bank_range_merge_cuda,
         bank_range_merge_nodes_cuda,
     )
-    from repro_torch.kernels.ddsketch_hist import histogram_cuda
+    from repro_torch.kernels.ddsketch_hist import bin_rows, histogram_cuda, sum_rows
     from repro_torch.kernels.ddsketch_ingest import ddsketch_ingest_cuda, ddsketch_ingest_into_cuda
     from repro_torch.kernels.ddsketch_scatter import scatter_cuda
     from repro_torch.kernels.ddsketch_seg_hist import segment_histogram_cuda
@@ -1260,6 +1377,8 @@ def main() -> int:
         "bank_range_merge_stacked": bank_range_merge_cuda,
         "ddsketch_seg_hist": segment_histogram_cuda,
         "ddsketch_hist": histogram_cuda,
+        "ddsketch_hist_bin": bin_rows,  # its two launches, timed apart
+        "ddsketch_hist_sum": sum_rows,
         "ddsketch_scatter": scatter_cuda,
     }
     smi = subprocess.run(
@@ -1386,12 +1505,14 @@ def main() -> int:
 
     kernels = []
     for kname in _build.KERNELS:
+        by_path = {path: counts[kname] for path, counts in launches.items()}
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{kname}.cu",
             "replaces": REPLACES[kname],
-            "launches": launches[HOME_PATH[kname]][kname],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max_abs_err(errs[kname]),
             **times[kname],
         })

@@ -2,9 +2,10 @@
 version.
 
 ``bank_quantiles_cuda`` launches the hand-written CUDA kernel that
-replaces the JAX package's Pallas ``_bankq_kernel``: one block per row
-builds the row's ``(2m+1)`` line and its cumulative counts once and
-answers every q off them.  ``bank_quantiles_ref`` (re-exported from
+replaces the JAX package's Pallas ``_bankq_kernel``: a persistent grid
+whose blocks hold the next row's counts in registers while they scan the
+current row's ``(2m+1)`` line once in shared memory and answer every q by
+a binary search over the cumulative counts.  ``bank_quantiles_ref`` (re-exported from
 ``ref``) is the plain PyTorch version; the ``ops.bank_quantiles`` front
 door takes it only for tensors that lie on the CPU.
 """
@@ -54,7 +55,9 @@ def bank_quantiles_cuda(
     ``pos`` / ``neg`` ``(K, m)`` and ``zero`` ``(K,)`` share one counts
     dtype (float32 or int32); ``vmin`` / ``vmax`` float32 and ``level``
     int32 are ``(K,)``; ``qs`` float32 ``(Q,)``; ``table`` float32
-    ``(levels, m)``.  All contiguous and on one CUDA device.
+    ``(levels, m)``.  All contiguous and on one CUDA device; rows need no
+    alignment beyond their counts' own (an odd ``m`` or an offset view
+    takes the kernel's 4-byte loads instead of its 16-byte ones).
     """
     dev = pos.device
     if dev.type != "cuda":
@@ -62,7 +65,7 @@ def bank_quantiles_cuda(
     if pos.dtype not in _ENTRY:
         raise TypeError(f"bank_quantiles takes float32 or int32 counts, got {pos.dtype}")
     k, m = pos.shape
-    if (2 * m + 1) * 4 > _MAX_SMEM:
+    if 4 * (2 * m + 4) > _MAX_SMEM:  # the line and its three pads, as the kernel sizes it
         raise ValueError(f"a line of {2 * m + 1} buckets does not fit one block's shared memory")
     nq = qs.numel()
     ptrs = (

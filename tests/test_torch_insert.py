@@ -168,6 +168,28 @@ def test_histogram_front_doors_match_pallas_interpret(mapping, rng):
     )
 
 
+def _crowded_lanes(rng, case):
+    """Lanes that crowd the single-row histogram's bins: every lane at
+    collapse level 6 (a dozen buckets), or every lane in one bucket."""
+    if case == "level6":
+        x = (rng.pareto(1.0, N) + 1.0).astype(np.float32)
+        return x, np.full(N, 6, np.int32)
+    return np.full(N, 1.5, np.float32), np.zeros(N, np.int32)
+
+
+@pytest.mark.parametrize("mapping", ["linear", "cubic"])
+@pytest.mark.parametrize("case", ["level6", "one_bucket"])
+@pytest.mark.parametrize("weights", ["none", "int"])
+def test_single_row_histogram_crowded_lanes_match_pallas_interpret(mapping, case, weights, rng):
+    js, ts = _specs(mapping)
+    x, lev = _crowded_lanes(rng, case)
+    w = _weights(rng, weights)
+    got = tops.ddsketch_histogram(_t(x), _t(w), _t(lev), spec=ts).numpy()
+    want = np.asarray(jops.ddsketch_histogram(_j(x), _j(w), _j(lev), spec=js, force="interpret"))
+    np.testing.assert_array_equal(got, want)
+    assert np.count_nonzero(got) <= (1 if case == "one_bucket" else 16)
+
+
 def test_scatter_front_door_matches_pallas_interpret(rng):
     js, ts = _specs()
     x, s, lev = _lanes(rng)

@@ -88,27 +88,84 @@ def test_fold_pairs_front_door_matches_pallas_interpret(rng, jx):
     np.testing.assert_array_equal(t.numpy(), np.where(rows.numpy()[:, None], want, c))
 
 
-@pytest.mark.parametrize("mapping", ["log", "linear", "cubic"])
-def test_bank_quantiles_front_door_matches_pallas_interpret(mapping, rng, jx):
+def _bank_quantiles_case(jx, rng, *, mapping, num_buckets, qs):
+    """One bank (an empty row, mixed levels) through the port's front door
+    and the JAX Pallas kernel in interpret mode: the two answers."""
     jnp = jx.jnp
-    js = jx.Spec(num_buckets=512, offset=-256, mapping=mapping)
-    ts = TSpec(num_buckets=512, offset=-256, mapping=mapping)
+    offset = -(num_buckets // 2)
+    js = jx.Spec(num_buckets=num_buckets, offset=offset, mapping=mapping)
+    ts = TSpec(num_buckets=num_buckets, offset=offset, mapping=mapping)
     k = 16
-    pos = rng.poisson(2.0, (k, 512)).astype(np.float32)
-    neg = rng.poisson(0.3, (k, 512)).astype(np.float32)
+    pos = rng.poisson(2.0, (k, num_buckets)).astype(np.float32)
+    neg = rng.poisson(0.3, (k, num_buckets)).astype(np.float32)
     zero = rng.poisson(3.0, k).astype(np.float32)
     pos[0] = neg[0] = zero[0] = 0
     vmin = np.full(k, -5e4, np.float32)
     vmax = np.full(k, 5e4, np.float32)
     level = rng.integers(0, 7, k).astype(np.int32)
-    qs = [0.0, 0.05, 0.5, 0.95, 0.99, 1.0]
     args = (pos, neg, zero, vmin, vmax, level)
     want = np.asarray(
         jx.ops.bank_quantiles(*map(jnp.asarray, args), jnp.asarray(qs, jnp.float32),
                             spec=js, force="interpret")
     )
     got = tops.bank_quantiles(*map(torch.from_numpy, args), qs, spec=ts).numpy()
+    return got, want
+
+
+@pytest.mark.parametrize("mapping", ["log", "linear", "cubic"])
+def test_bank_quantiles_front_door_matches_pallas_interpret(mapping, rng, jx):
+    qs = [0.0, 0.05, 0.5, 0.95, 0.99, 1.0]
+    got, want = _bank_quantiles_case(jx, rng, mapping=mapping, num_buckets=512, qs=qs)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nq", [1, 8, 33])
+@pytest.mark.parametrize("num_buckets", [512, 1001])
+def test_bank_quantiles_q_counts_and_odd_buckets_match_pallas_interpret(nq, num_buckets, rng,
+                                                                          jx):
+    """Q = 1, 8 and 33 (more than one warp of answers), and an odd
+    num_buckets, whose rows the card kernel reads unaligned."""
+    qs = np.linspace(0.0, 1.0, nq, dtype=np.float32) if nq > 1 else [0.99]
+    got, want = _bank_quantiles_case(jx, rng, mapping="linear", num_buckets=num_buckets, qs=qs)
+    assert got.shape == (16, nq)
+    np.testing.assert_array_equal(got, want)
+
+
+def _upper_bound(cum: np.ndarray, rank: np.ndarray) -> np.ndarray:
+    """The card kernel's search, row by row and q by q: the first index
+    whose cum exceeds rank (``a``, ``b`` and ``mid`` as in
+    ``csrc/bank_quantiles.cu``)."""
+    a = np.zeros(rank.shape, np.int64)
+    b = np.full(rank.shape, cum.shape[1], np.int64)
+    rows = np.arange(cum.shape[0])[:, None]
+    while np.any(a < b):
+        live = a < b
+        mid = (a + b) >> 1
+        go_right = cum[rows, np.minimum(mid, cum.shape[1] - 1)] <= rank
+        a = np.where(live & go_right, mid + 1, a)
+        b = np.where(live & ~go_right, mid, b)
+    return a
+
+
+def test_binary_search_equals_compare_and_count_on_nonnegative_rows(rng):
+    """The premise of the card kernel's search: on non-negative fractional
+    lines (with empty runs, so cum has plateaus, and ranks that land on a
+    cum value exactly), the JAX kernel's #{cum <= rank} equals
+    torch.searchsorted(cum, rank, right=True) and the kernel's upper-bound
+    binary search for every q."""
+    k, width = 64, 2 * 512 + 1
+    line = rng.random((k, width)).astype(np.float32) * (rng.random((k, width)) < 0.3)
+    line[0] = 0.0  # an empty row
+    line[1, :100] = 0.0
+    cum = torch.from_numpy(line).cumsum(dim=1)
+    n = cum[:, -1:]
+    qs = torch.from_numpy(np.concatenate([np.linspace(0.0, 1.0, 41), [0.01, 0.99]])
+                          .astype(np.float32))
+    rank = qs[None, :] * torch.clamp(n - 1.0, min=0.0)
+    rank[2:10, :8] = cum[2:10, rng.integers(0, width, 8)]  # ties with cum
+    count = (cum[:, None, :] <= rank[:, :, None]).sum(dim=-1)
+    assert torch.equal(count, torch.searchsorted(cum, rank.contiguous(), right=True))
+    np.testing.assert_array_equal(_upper_bound(cum.numpy(), rank.numpy()), count.numpy())
 
 
 def test_dispatch_stats_count_launches_only():
@@ -323,3 +380,51 @@ def test_cuda_in_place_ingest_and_node_merge_match_plain_versions(rng):
     assert tops.dispatch_stats()["launches"]["bank_range_merge"] == 1
     block_bytes = (ring.max_range_nodes + 1) * 2 * k * m * 4
     assert torch.cuda.max_memory_allocated() - before < block_bytes / 2
+
+
+@pytest.mark.gpu
+def test_cuda_quantiles_and_histogram_edges_match_plain_versions(rng):
+    """The bank query on rows that are not 16-byte aligned (an odd
+    num_buckets, an offset view), on rows narrower and wider than the
+    kernel's registers hold (m = 64, 3001, 4096), at Q = 300 and at the K = 1
+    rollup shape; the single-row histogram on a misaligned view, with its
+    levels offset alike and otherwise, at N not a multiple of 4 and at
+    N = 5, at m = 64 and m = 1, and twice back to back on one stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    dev = torch.device("cuda")
+    k = 64
+    for ts in (TSpec(num_buckets=1001, offset=-500), TSpec(), TSpec(num_buckets=64, offset=-32),
+               TSpec(num_buckets=3001, offset=-1500), TSpec(num_buckets=4096, offset=-2048)):
+        m = ts.num_buckets
+        pos = torch.from_numpy(rng.poisson(2.0, (k, m)).astype(np.float32)).to(dev)
+        neg = torch.from_numpy(rng.poisson(0.3, (k, m)).astype(np.float32)).to(dev)
+        flat = torch.empty(k * m + 1, device=dev)
+        flat[1:].copy_(pos.reshape(-1))
+        shifted = flat[1:].view(k, m)  # every row one count past a 16-byte boundary
+        zero = torch.from_numpy(rng.poisson(3.0, k).astype(np.float32)).to(dev)
+        vmin, vmax = torch.full((k,), -5e4, device=dev), torch.full((k,), 5e4, device=dev)
+        lv = torch.from_numpy(rng.integers(0, 7, k).astype(np.int32)).to(dev)
+        table = device_value_table(ts, dev)
+        for qs in (torch.tensor([0.5], device=dev), torch.linspace(0.0, 1.0, 300, device=dev)):
+            for args in ((pos, neg, zero, vmin, vmax, lv), (shifted, neg, zero, vmin, vmax, lv),
+                         (pos.sum(0, keepdim=True), neg.sum(0, keepdim=True),
+                          zero.sum().reshape(1), vmin[:1], vmax[:1], lv.max().reshape(1))):
+                got = tops.bank_quantiles(*args, qs, spec=ts, table=table)
+                want = tref.bank_quantiles_ref(*args, qs, table)
+                assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+    ts = TSpec(mapping="linear")
+    n = (1 << 16) + 3
+    x, _, lev = _lanes(rng, n, k)
+    xt, lt = torch.from_numpy(x).to(dev), torch.from_numpy(lev).to(dev)
+    w = torch.from_numpy(rng.integers(0, 4, n).astype(np.float32)).to(dev)
+    cases = [(xt[1:], w[1:], lt[1:]), (xt[1:], None, lt[:-1]), (xt, w, lt), (xt[7:12], None, None)]
+    narrow = (TSpec(num_buckets=64, offset=-32, mapping="linear"),
+              TSpec(num_buckets=1, offset=0, mapping="linear"))
+    for sp in (ts, *narrow):
+        for xs, ws, ls in cases:
+            assert torch.equal(tops.ddsketch_histogram(xs, ws, ls, spec=sp),
+                               tref.histogram_ref(xs, ws, ls, spec=sp))
+    first, second = (tops.ddsketch_histogram(xt, w, lt, spec=ts) for _ in range(2))
+    want = tref.histogram_ref(xt, w, lt, spec=ts)
+    assert torch.equal(first, want) and torch.equal(second, want)
